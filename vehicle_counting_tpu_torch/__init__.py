@@ -1,0 +1,16 @@
+"""PyTorch + CUDA port of the vehicle counting pipeline, for one NVIDIA H100.
+
+The JAX package `vehicle_counting_tpu` is the reference this port is held
+against. Modules mirror its paths (`ops/letterbox.py`, `models/yolo.py`,
+`tracking/tracker.py`, ...). The port imports `torch` and never `jax`;
+JAX-free host modules of the reference (configs, counting, video I/O,
+colors) are imported rather than copied.
+
+Hand-written CUDA kernels live in `csrc/` and are built with `nvcc` at
+first use (`_build.py`); every kernel wrapper runs its plain PyTorch
+version for CPU tensors and launches the kernel for CUDA tensors.
+
+    python -m vehicle_counting_tpu_torch.run --input_path <video> --output_path <dir>
+"""
+
+__version__ = "0.1.0"

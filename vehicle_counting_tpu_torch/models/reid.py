@@ -1,0 +1,107 @@
+"""ReID appearance CNN (DeepSORT's model), inference in PyTorch.
+
+Port of `vehicle_counting_tpu/models/reid.py` (inference path of
+`reid_forward`, reid=True): conv3x3(+bias)+BN+ReLU+maxpool(3,2,1) stem,
+4 stages of 2 residual BasicBlocks (64->64, 64->128/s2, 128->256/s2,
+256->512/s2), 4x4 average pool and an L2-normalised 512-d embedding.
+BatchNorm stays explicit (running stats, f32), as in the reference. The
+TPU-only odd->even spatial pad (`_conv3_even`) is not carried over: it was
+a bitwise-neutral layout trick for the TPU.
+
+Params and stats are plain dicts (OIHW conv weights), carried across from
+the JAX pytrees by `models/convert.py::reid_params_from_jax`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+EMBED_DIM = 512
+BN_EPS = 1e-5
+STAGES = ((64, 64, False), (64, 128, True), (128, 256, True), (256, 512, True))
+
+
+def _he(gen, k, cin, cout, device):
+    w = torch.randn((cout, cin, k, k), generator=gen, dtype=torch.float32)
+    return (w * math.sqrt(2.0 / (k * k * cin))).to(device)
+
+
+def _bn_init(c, device):
+    return ({"scale": torch.ones(c, device=device), "bias": torch.zeros(c, device=device)},
+            {"mean": torch.zeros(c, device=device), "var": torch.ones(c, device=device)})
+
+
+def init_reid(gen: torch.Generator, device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Random-init (params, batch_stats) of the embedding network (the
+    reference's classifier head serves training only, which is not ported)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    bn_p, bn_s = _bn_init(64, device)
+    params["stem"] = {"w": _he(gen, 3, 3, 64, device), "b": torch.zeros(64, device=device), "bn": bn_p}
+    stats["stem"] = bn_s
+    for si, (cin, cout, ds) in enumerate(STAGES):
+        for bi in range(2):
+            name = f"layer{si + 1}_{bi}"
+            b_cin = cin if bi == 0 else cout
+            bn1_p, bn1_s = _bn_init(cout, device)
+            bn2_p, bn2_s = _bn_init(cout, device)
+            p = {"conv1": {"w": _he(gen, 3, b_cin, cout, device)}, "bn1": bn1_p,
+                 "conv2": {"w": _he(gen, 3, cout, cout, device)}, "bn2": bn2_p}
+            s = {"bn1": bn1_s, "bn2": bn2_s}
+            if (ds and bi == 0) or b_cin != cout:
+                dbn_p, dbn_s = _bn_init(cout, device)
+                p["down"] = {"w": _he(gen, 1, b_cin, cout, device), "bn": dbn_p}
+                s["down"] = dbn_s
+            params[name] = p
+            stats[name] = s
+    return params, stats
+
+
+def _bn(x, p, s):
+    """Inference BatchNorm on NCHW f32: (x - mean) * rsqrt(var + eps) * scale + bias."""
+    inv = torch.rsqrt(s["var"] + BN_EPS)
+    shape = (1, -1, 1, 1)
+    return (x - s["mean"].view(shape)) * inv.view(shape) * p["scale"].view(shape) + p["bias"].view(shape)
+
+
+def _conv(x, w, stride, padding, dtype):
+    """Conv in the compute dtype (f32 accumulation inside cuDNN); f32 out."""
+    return F.conv2d(x.to(dtype), w.to(dtype), stride=stride, padding=padding).float()
+
+
+def _basic_block(p, s, x, stride: int, dtype):
+    y = torch.relu(_bn(_conv(x, p["conv1"]["w"], stride, 1, dtype), p["bn1"], s["bn1"]))
+    y = _bn(_conv(y, p["conv2"]["w"], 1, 1, dtype), p["bn2"], s["bn2"])
+    if "down" in p:
+        x = _bn(_conv(x, p["down"]["w"], stride, 0, dtype), p["down"]["bn"], s["down"])
+    return torch.relu(x + y)
+
+
+def reid_forward_nchw(params, stats, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """x [N, 3, 50, 50] normalised crops -> L2-normalised [N, 512] f32."""
+    y = _conv(x, params["stem"]["w"], 1, 1, dtype) + params["stem"]["b"].view(1, -1, 1, 1)
+    y = F.max_pool2d(torch.relu(_bn(y, params["stem"]["bn"], stats["stem"])), 3, 2, 1)
+    for si, (_, _, ds) in enumerate(STAGES):
+        for bi in range(2):
+            name = f"layer{si + 1}_{bi}"
+            y = _basic_block(params[name], stats[name], y, 2 if (ds and bi == 0) else 1, dtype)
+    emb = F.avg_pool2d(y, 4, 1).flatten(1)  # 50x50 input -> 4x4 -> 1x1
+    return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
+
+
+def reid_forward(params, stats, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """JAX layout: x [N, 50, 50, 3] normalised crops -> [N, 512] embeddings."""
+    return reid_forward_nchw(params, stats, x.permute(0, 3, 1, 2), dtype)
+
+
+def cast_conv_weights(params, dtype: torch.dtype):
+    """Conv weights (4-D "w" leaves) in the compute dtype, once; BN vectors,
+    biases and dense weights stay f32."""
+    if isinstance(params, dict):
+        return {k: (v.to(dtype) if k == "w" and torch.is_tensor(v) and v.dim() == 4
+                    else cast_conv_weights(v, dtype)) for k, v in params.items()}
+    return params

@@ -1,0 +1,78 @@
+"""Seeded inputs for checking the kernels against their plain versions.
+
+Shared by the CPU parity tests and `chip_smoke.py`. Everything is made
+with numpy from a seed, so the same problem can be fed to the JAX
+reference, the plain PyTorch version and the CUDA kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from vehicle_counting_tpu_torch.ops.cascade import IMAX
+from vehicle_counting_tpu_torch.tracking.assignment import BIG
+from vehicle_counting_tpu_torch.tracking.tracker import INFTY_COST
+
+
+def association_problem(rng: np.random.Generator, c: int, k: int, max_age: int,
+                        kind: str = "random") -> Dict[str, np.ndarray]:
+    """[C]-batched association operands like one tracker frame produces.
+
+    kind: "random" (spread costs, gating, mixed ages), "ties" (costs from
+    three values, many above the threshold so the clamp ties them), or
+    "empty" (class 0 has no valid detection, class 1 no track, class 2 no
+    free detection after validity).
+    """
+    n_trk = rng.integers(0, k + 1, size=c)
+    n_det = rng.integers(0, k + 1, size=c)
+    state = np.zeros((c, k), np.int32)  # 0 empty, 1 tentative, 2 confirmed
+    tsu = np.zeros((c, k), np.int32)
+    for ci in range(c):
+        slots = rng.permutation(k)[: n_trk[ci]]
+        state[ci, slots] = rng.choice([1, 2, 2, 2], size=slots.size)
+        tsu[ci, slots] = np.where(rng.random(slots.size) < 0.6, 1, rng.integers(1, max_age + 3, slots.size))
+    track_id = np.where(state > 0, rng.permutation(c * k).reshape(c, k) + 1, 0).astype(np.int32)
+    confirmed = state == 2
+    lvl_of = np.where(confirmed & (tsu <= max_age), tsu - 1, IMAX).astype(np.int32)
+    det_valid = np.zeros((c, k), bool)
+    for ci in range(c):
+        det_valid[ci, rng.permutation(k)[: n_det[ci]]] = True
+    if kind == "ties":
+        gated = rng.choice(np.float32([0.05, 0.1, 0.5]), size=(c, k, k))
+        iou = rng.choice(np.float32([0.2, 0.4, 0.9]), size=(c, k, k))
+    else:
+        gated = rng.uniform(0.0, 0.45, size=(c, k, k)).astype(np.float32)
+        iou = rng.uniform(0.0, 1.0, size=(c, k, k)).astype(np.float32)
+        gated = np.where(rng.random((c, k, k)) < 0.2, INFTY_COST, gated)
+    if kind == "empty":
+        det_valid[0] = False
+        state[1] = 0
+        lvl_of[1] = IMAX
+        det_valid[2] = False
+    gated = np.where(det_valid[:, None, :], gated, BIG).astype(np.float32)
+    iou = np.where(tsu[:, :, None] > 1, INFTY_COST, iou).astype(np.float32)
+    iou_order = (track_id + np.where(confirmed, 1 << 20, 0)).astype(np.int32)
+    det_order = np.stack([rng.permutation(k) for _ in range(c)]).astype(np.int32)
+    return {
+        "gated": gated, "iou": iou, "lvl_of": lvl_of,
+        "tentative": (state == 1), "track_id": track_id, "iou_order": iou_order,
+        "det_valid": det_valid, "det_order": det_order,
+    }
+
+
+def crop_boxes(rng: np.random.Generator, d: int, h: int, w: int) -> np.ndarray:
+    """[D, 4] xyxy boxes in a [h, w] frame: ordinary boxes plus boxes that
+    touch or cross the edges, one-pixel boxes and degenerate (x2 < x1)
+    boxes, so clamp taps coincide."""
+    x1 = rng.uniform(-20, w, d)
+    y1 = rng.uniform(-20, h, d)
+    bw = rng.uniform(0.5, w / 2, d)
+    bh = rng.uniform(0.5, h / 2, d)
+    boxes = np.stack([x1, y1, x1 + bw, y1 + bh], axis=1)
+    n = d // 8
+    boxes[:n] = [[w - 3.5, h - 2.2, w + 40.0, h + 30.0]] * n       # past the corner
+    boxes[n : 2 * n] = [[0.0, 0.0, 1.0, 1.0]] * n                 # one pixel
+    boxes[2 * n : 3 * n] = [[30.0, 40.0, 10.0, 20.0]] * n         # degenerate
+    return boxes.astype(np.float32)

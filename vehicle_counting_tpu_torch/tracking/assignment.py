@@ -1,0 +1,87 @@
+"""Optimal assignment (Jonker-Volgenant shortest augmenting path), scipy-exact.
+
+Port of `vehicle_counting_tpu/tracking/assignment.py`: row-by-row
+insertion with dual potentials, first-minimum column scans, and scipy's
+transpose rule (insert the smaller side). This is the plain version the
+association kernel K2 (`csrc/cascade.cu`) is held against; it runs eagerly
+with Python control flow.
+
+Contract: the [S, S] matrix is COMPACTED -- real rows first in the
+reference's row order, real columns first in its column order, padding
+entries BIG. Only real rows are inserted, so padding never perturbs ties.
+"""
+
+from __future__ import annotations
+
+import torch
+
+BIG = 8.0  # >> any clamped association cost (<= ~1)
+_INF = 1e18
+
+
+def _insert_rows(cost: torch.Tensor, nr: int) -> torch.Tensor:
+    """JV row insertion of rows [0, nr) of an [S, S] f32 matrix.
+
+    Returns p [S+1] int64: p[j] = row assigned to column j (-1 free); index
+    S is the virtual root column.
+    """
+    s = cost.shape[0]
+    virt = s
+    u = torch.zeros(s + 1, dtype=torch.float32)
+    v = torch.zeros(s + 1, dtype=torch.float32)
+    p = torch.full((s + 1,), -1, dtype=torch.int64)
+    for i in range(int(nr)):
+        p[virt] = i
+        minv = torch.full((s,), _INF, dtype=torch.float32)
+        way = torch.full((s,), virt, dtype=torch.int64)
+        used = torch.zeros(s + 1, dtype=torch.bool)
+        j0 = virt
+        while int(p[j0]) != -1:
+            used[j0] = True
+            i0 = int(p[j0])
+            cur = cost[i0] - u[i0] - v[:s]
+            better = ~used[:s] & (cur < minv)
+            minv = torch.where(better, cur, minv)
+            way = torch.where(better, torch.full_like(way, j0), way)
+            masked = torch.where(used[:s], torch.full_like(minv, _INF), minv)
+            j1 = int(torch.argmin(masked))  # first minimum wins
+            delta = masked[j1]
+            u[p[used]] += delta  # rows of the used columns, root included
+            v = torch.where(used, v - delta, v)
+            minv = torch.where(used[:s], minv, minv - delta)
+            j0 = j1
+        while j0 != virt:  # augment along the alternating path
+            j1 = int(way[j0])
+            p[j0] = p[j1]
+            j0 = j1
+    return p
+
+
+def solve_uniform(insert_fn, cost: torch.Tensor, nr: int, nc: int) -> torch.Tensor:
+    """scipy-transpose handling around a row-insertion solver: when there
+    are more rows than columns, insert the columns of cost.T instead.
+    Returns row_to_col [S] int64, -1 for unassigned/padded rows."""
+    s = cost.shape[0]
+    if nr > nc:
+        # p is indexed by the columns of cost.T == original rows
+        return insert_fn(cost.t().contiguous(), nc)[:s]
+    p = insert_fn(cost, nr)[:s]
+    r2c = torch.full((s,), -1, dtype=torch.int64)
+    cols = torch.nonzero(p >= 0).flatten()
+    r2c[p[cols]] = cols
+    return r2c
+
+
+def solve_assignment_sub(cost: torch.Tensor, nr: int, nc: int) -> torch.Tensor:
+    """Assignment over the top-left nr x nc submatrix of an [S, S] matrix,
+    matching scipy.optimize.linear_sum_assignment including its ties."""
+    return solve_uniform(_insert_rows, cost, nr, nc)
+
+
+def matching_cost_matrix(cost: torch.Tensor, row_mask: torch.Tensor,
+                         col_mask: torch.Tensor, clamp: float) -> torch.Tensor:
+    """Clamp real entries at `clamp` (max_distance + 1e-5, min_cost_matching's
+    rule); mask the rest to BIG."""
+    clamped = torch.clamp(cost, max=clamp)
+    live = row_mask[:, None] & col_mask[None, :]
+    return torch.where(live, clamped, torch.full_like(clamped, BIG))

@@ -1,0 +1,333 @@
+"""Fixed-capacity vectorised DeepSORT tracker core, batched over classes.
+
+Port of `vehicle_counting_tpu/tracking/tracker.py`. The state is a
+structure of arrays whose leaves carry a leading class axis [C, ...]
+written out (the JAX code vmaps one class). Semantics are the
+reference's (networks/deepsort/sort/tracker.py, track.py, nn_matching.py,
+linear_assignment.py, iou_matching.py):
+
+  * K track slots: Kalman mean/cov, lifecycle state (0 empty, 1
+    tentative, 2 confirmed), hits/age/time_since_update, increasing ids
+    taken in unmatched-detection list order;
+  * an appearance gallery ring [K, budget, F] with in-ring pending writes
+    revealed on confirmation (`tracker_feature_post`);
+  * association: matching cascade + IoU stage, one launch of kernel K2
+    for all classes (`_associate` -> ops/cascade.py);
+  * a class with no raw detection this frame does not advance.
+
+On the card every per-frame step is sync-free: data-dependent choices are
+masked selects and scatters, never host branches.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from vehicle_counting_tpu_torch.ops.boxes import tlwh_iou_matrix, tlwh_to_xyah
+from vehicle_counting_tpu_torch.ops.cascade import (
+    IMAX,
+    cascade_match_batched,
+    cascade_match_classparallel,
+)
+from vehicle_counting_tpu_torch.tracking import kalman
+from vehicle_counting_tpu_torch.tracking.assignment import BIG
+
+INFTY_COST = 1e5  # linear_assignment.py:9
+
+EMPTY, TENTATIVE, CONFIRMED = 0, 1, 2
+
+
+@dataclass(frozen=True)
+class TrackerParams:
+    """Per-camera DeepSORT hyper-parameters (configs/cam_configs.yaml keys)."""
+
+    capacity: int = 64          # track slots K (== detection capacity)
+    feat_dim: int = 512
+    budget: int = 60            # NN_BUDGET gallery ring size (>= N_INIT)
+    max_dist: float = 0.2       # MAX_DIST cosine matching threshold
+    max_iou_distance: float = 0.6
+    max_age: int = 30
+    n_init: int = 3
+    feat_dtype: str = "float32"  # gallery storage dtype ("bfloat16" on the card)
+
+
+class TrackerState(NamedTuple):
+    mean: torch.Tensor           # [C, K, 8]
+    cov: torch.Tensor            # [C, K, 8, 8]
+    track_id: torch.Tensor       # [C, K] i32
+    state: torch.Tensor          # [C, K] i32
+    hits: torch.Tensor           # [C, K] i32
+    age: torch.Tensor            # [C, K] i32
+    tsu: torch.Tensor            # [C, K] i32 time_since_update
+    gallery: torch.Tensor        # [C, K, budget, F] (pending rows included)
+    gallery_count: torch.Tensor  # [C, K] i32 revealed count; ring pos = count % budget
+    pending_count: torch.Tensor  # [C, K] i32 appended since the last flush
+    last_conf: torch.Tensor      # [C, K] f32
+    next_id: torch.Tensor        # [C] i32
+    overflow: torch.Tensor       # [C] i32 count of dropped initiations
+
+
+class TrackerOutputs(NamedTuple):
+    boxes: torch.Tensor   # [C, K, 4] i32 xyxy
+    ids: torch.Tensor     # [C, K] i32
+    scores: torch.Tensor  # [C, K] f32
+    mask: torch.Tensor    # [C, K] bool
+
+
+class TrackerFlags(NamedTuple):
+    """Per-slot association outcome that `tracker_feature_post` applies."""
+
+    matched: torch.Tensor     # [C, K] bool
+    gcol: torch.Tensor        # [C, K] matched detection index (0 if unmatched)
+    delete: torch.Tensor      # [C, K] bool
+    src: torch.Tensor         # [C, K] detection initiating this slot (K = none)
+    conf_after: torch.Tensor  # [C, K] bool: CONFIRMED after the lifecycle
+
+
+_FEAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def init_state(hp: TrackerParams, num_classes: int, device=None) -> TrackerState:
+    """Empty tracker state for `num_classes` classes."""
+    c, k, b, f = num_classes, hp.capacity, hp.budget, hp.feat_dim
+    i32 = dict(dtype=torch.int32, device=device)
+    mean = torch.zeros((c, k, 8), device=device)
+    mean[..., 3] = 1.0  # h = 1 keeps the Cholesky finite on empty slots
+    return TrackerState(
+        mean=mean,
+        cov=torch.eye(8, device=device).expand(c, k, 8, 8).clone(),
+        track_id=torch.zeros((c, k), **i32),
+        state=torch.zeros((c, k), **i32),
+        hits=torch.zeros((c, k), **i32),
+        age=torch.zeros((c, k), **i32),
+        tsu=torch.zeros((c, k), **i32),
+        gallery=torch.zeros((c, k, b, f), dtype=_FEAT_DTYPES[hp.feat_dtype], device=device),
+        gallery_count=torch.zeros((c, k), **i32),
+        pending_count=torch.zeros((c, k), **i32),
+        last_conf=torch.zeros((c, k), device=device),
+        next_id=torch.ones((c,), **i32),
+        overflow=torch.zeros((c,), **i32),
+    )
+
+
+def l2_normalize(feat: torch.Tensor) -> torch.Tensor:
+    return feat / torch.clamp(torch.linalg.vector_norm(feat, dim=-1, keepdim=True), min=1e-12)
+
+
+def _appearance_cost(st: TrackerState, feat: torch.Tensor, hp: TrackerParams) -> torch.Tensor:
+    """[C, K, D] min cosine distance of each detection to each gallery.
+
+    Features are rounded to the gallery's storage dtype and the products
+    summed in f32 (a bf16 gallery gives bf16 x bf16 -> f32, as on the TPU).
+    """
+    c, k, b, f = st.gallery.shape
+    f_n = l2_normalize(feat).to(st.gallery.dtype).float()
+    sims = torch.matmul(st.gallery.float().reshape(c, k * b, f), f_n.transpose(-1, -2))
+    sims = sims.reshape(c, k, b, -1)
+    slot = torch.arange(b, device=feat.device)
+    slot_valid = slot < torch.clamp(st.gallery_count, max=b)[..., None]  # [C, K, B]
+    dist = torch.where(slot_valid[..., None], 1.0 - sims, torch.full_like(sims, INFTY_COST))
+    return dist.amin(dim=2)
+
+
+def _associate(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
+               det_valid, det_order, hp: TrackerParams):
+    """Cascade + IoU association for [C] classes -> (det_free, track_col, det_key).
+
+    One launch of the association kernel for all classes (its plain
+    version, `ops/cascade.py::associate_plain`, on CPU tensors); a single
+    class goes through the per-class entry, as in the reference.
+    """
+    c, k = lvl_of.shape
+    fn = cascade_match_classparallel if c > 1 else cascade_match_batched
+    det_free, det_key, out_row = fn(
+        gated, iou_cost, lvl_of, tentative, track_id, iou_order, det_valid, det_order,
+        hp.max_dist, hp.max_iou_distance, max_age=hp.max_age,
+    )
+    # invert det slot -> track slot into per-track matched column
+    dev = out_row.device
+    track_col = torch.full((c, k + 1), -1, dtype=torch.int32, device=dev)
+    tgt = torch.where(out_row >= 0, out_row, k).long()
+    track_col.scatter_(1, tgt, torch.arange(k, dtype=torch.int32, device=dev).expand(c, k).contiguous())
+    return det_free, track_col[:, :k], det_key
+
+
+def tracker_precompute(st: TrackerState, tlwh, feat, det_valid, hp: TrackerParams):
+    """Association-independent math: predict + gated appearance cost.
+    Returns (pred_mean, pred_cov, gated [C, K, D])."""
+    active = st.state > EMPTY
+    pm, pc = kalman.predict(st.mean, st.cov)
+    mean = torch.where(active[..., None], pm, st.mean)
+    cov = torch.where(active[..., None, None], pc, st.cov)
+    app = _appearance_cost(st, feat, hp)
+    maha = kalman.gating_distance(mean, cov, tlwh_to_xyah(tlwh))
+    gated = torch.where(maha > kalman.CHI2INV95_4DOF, torch.full_like(app, INFTY_COST), app)
+    gated = torch.where(det_valid[..., None, :], gated, torch.full_like(gated, BIG))
+    return mean, cov, gated
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [C, D, ...] gathered at idx [C, K] along dim 1 -> [C, K, ...]."""
+    shape = idx.shape + x.shape[2:]
+    ix = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2)).expand(shape)
+    return torch.gather(x, 1, ix)
+
+
+def _tracker_core(st: TrackerState, pre, tlwh, conf, det_valid, hp: TrackerParams,
+                  width: int, height: int, det_order):
+    """Association + lifecycle for [C] classes on the small state.
+    Returns (new_state, outputs, flags); gallery leaves pass through."""
+    k = hp.capacity
+    c = st.state.shape[0]
+    dev = st.state.device
+    i32 = torch.int32
+    active = st.state > EMPTY
+    mean, cov, gated = pre
+    age = st.age + active.to(i32)
+    tsu = st.tsu + active.to(i32)
+    det_xyah = tlwh_to_xyah(tlwh)
+
+    confirmed = st.state == CONFIRMED
+    tentative = st.state == TENTATIVE
+    # level L matches tracks with tsu == 1 + L (cascade depth = max_age)
+    lvl_of = torch.where(confirmed & (tsu <= hp.max_age), tsu - 1, torch.full_like(tsu, IMAX))
+    iou_cost = 1.0 - tlwh_iou_matrix(kalman.to_tlwh(mean), tlwh)
+    iou_cost = torch.where(tsu[..., None] > 1, torch.full_like(iou_cost, INFTY_COST), iou_cost)
+    # IoU-stage row order: unconfirmed tracks first, each group in id order
+    iou_order = st.track_id + torch.where(confirmed, 1 << 20, 0).to(i32)
+
+    det_free, track_col, det_key = _associate(
+        gated, iou_cost, lvl_of, tentative, st.track_id, iou_order, det_valid, det_order, hp,
+    )
+
+    # ---- matched: KF update + lifecycle ----------------------------------
+    matched = track_col >= 0
+    gcol = torch.where(matched, track_col, 0)
+    um, uc = kalman.update(mean, cov, _take(det_xyah, gcol))
+    mean = torch.where(matched[..., None], um, mean)
+    cov = torch.where(matched[..., None, None], uc, cov)
+    hits = st.hits + matched.to(i32)
+    tsu = torch.where(matched, 0, tsu)
+    last_conf = torch.where(matched, _take(conf, gcol), st.last_conf)
+    state = torch.where((st.state == TENTATIVE) & (hits >= hp.n_init), CONFIRMED, st.state)
+
+    # ---- missed: delete tentative, expire confirmed ------------------------
+    missed = active & ~matched
+    delete = (missed & (st.state == TENTATIVE)) | (missed & (tsu > hp.max_age))
+    state = torch.where(delete, EMPTY, state)
+
+    # ---- initiate new tracks from unmatched detections, in list order -----
+    unmatched_det = det_valid & det_free
+    order_key = torch.where(unmatched_det, det_key, torch.full_like(det_key, IMAX))
+    det_rank = torch.sum(order_key[..., :, None] > order_key[..., None, :], dim=-1)  # [C, K]
+    free = state == EMPTY
+    free_pos = torch.cumsum(free.to(torch.int64), -1) - 1
+    num_free = free.sum(-1, keepdim=True)
+    d_idx = torch.arange(k, device=dev).expand(c, k)
+    slot_of_rank = torch.full((c, k + 1), k, dtype=torch.int64, device=dev)
+    slot_of_rank.scatter_(1, torch.where(free, free_pos, k), d_idx.contiguous())
+    place = unmatched_det & (det_rank < num_free)
+    slot_at = torch.gather(slot_of_rank, 1, torch.clamp(det_rank, 0, k - 1))
+    target = torch.where(place, slot_at, k)  # det -> slot (k: none)
+    src = torch.full((c, k + 1), k, dtype=torch.int64, device=dev)
+    src.scatter_(1, target, d_idx.contiguous())
+    src = src[:, :k]  # slot -> initiating det (k: none)
+    hit = src < k
+    src_c = torch.clamp(src, max=k - 1)
+
+    nm, ncv = kalman.initiate(det_xyah)
+    mean = torch.where(hit[..., None], _take(nm, src_c), mean)
+    cov = torch.where(hit[..., None, None], _take(ncv, src_c), cov)
+    new_ids = (st.next_id[:, None] + det_rank).to(i32)
+    track_id = torch.where(hit, torch.gather(new_ids, 1, src_c), st.track_id)
+    state = torch.where(hit, TENTATIVE, state)
+    hits = torch.where(hit, 1, hits)
+    age = torch.where(hit, 1, age)
+    tsu = torch.where(hit, 0, tsu)
+    last_conf = torch.where(hit, _take(conf, src_c), last_conf)
+
+    next_id = st.next_id + place.sum(-1).to(i32)
+    overflow = st.overflow + (unmatched_det & ~place).sum(-1).to(i32)
+    new_state = st._replace(
+        mean=mean, cov=cov, track_id=track_id, state=state.to(i32), hits=hits.to(i32),
+        age=age.to(i32), tsu=tsu.to(i32), last_conf=last_conf, next_id=next_id, overflow=overflow,
+    )
+    flags = TrackerFlags(matched=matched, gcol=gcol.to(torch.int64), delete=delete,
+                         src=src, conf_after=state == CONFIRMED)
+
+    # ---- outputs: confirmed tracks updated this frame, int xyxy clamped ----
+    out_mask = (state == CONFIRMED) & (tsu <= 1)
+    t = kalman.to_tlwh(mean)
+    x1 = torch.clamp(t[..., 0].to(i32), min=0)
+    y1 = torch.clamp(t[..., 1].to(i32), min=0)
+    x2 = torch.clamp((t[..., 0] + t[..., 2]).to(i32), max=width - 1)
+    y2 = torch.clamp((t[..., 1] + t[..., 3]).to(i32), max=height - 1)
+    m = out_mask.to(i32)
+    outputs = TrackerOutputs(
+        boxes=torch.stack([x1, y1, x2, y2], -1) * m[..., None],
+        ids=track_id * m,
+        scores=last_conf * out_mask,
+        mask=out_mask,
+    )
+    return new_state, outputs, flags
+
+
+def tracker_feature_post(gallery, gallery_count, pending_count, flags: TrackerFlags,
+                         f_n, hp: TrackerParams):
+    """Commit the frame's gallery mutations, IN PLACE on `gallery`.
+
+    In order: matched tracks append their detection's feature at ring
+    position (gallery_count + pending_count) % budget; deleted tracks
+    reset; newly initiated slots start with their feature at position 0;
+    confirmed tracks reveal their pending appends (gallery_count +=
+    pending_count). Every slot writes at most one ring row. f_n [C, D, F]
+    L2-normalised detection features.
+    """
+    b = hp.budget
+    c, k = gallery_count.shape
+    dev = gallery.device
+    has_new = flags.src < k
+    write = flags.matched | has_new
+    idx = torch.clamp(torch.where(has_new, flags.src, flags.gcol), 0, f_n.shape[-2] - 1)
+    feat_w = _take(f_n.to(gallery.dtype), idx)  # [C, K, F]
+    pos = torch.where(has_new, 0, torch.remainder(gallery_count + pending_count, b)).long()
+    ci = torch.arange(c, device=dev)[:, None].expand(c, k)
+    ki = torch.arange(k, device=dev)[None, :].expand(c, k)
+    old = gallery[ci, ki, pos]
+    gallery[ci, ki, pos] = torch.where(write[..., None], feat_w, old)  # unwritten slots keep their row
+
+    pending_count = torch.where(flags.matched, pending_count + 1, pending_count)
+    gallery_count = torch.where(flags.delete, 0, gallery_count)
+    pending_count = torch.where(flags.delete, 0, pending_count)
+    gallery_count = torch.where(has_new, 0, gallery_count)
+    pending_count = torch.where(has_new, 1, pending_count)
+    gallery_count = torch.where(flags.conf_after, gallery_count + pending_count, gallery_count)
+    pending_count = torch.where(flags.conf_after, 0, pending_count)
+    return gallery, gallery_count.to(torch.int32), pending_count.to(torch.int32)
+
+
+def tracker_step_core(st: TrackerState, pre, tlwh, conf, det_valid, hp: TrackerParams,
+                      width: int, height: int, present, det_order):
+    """`_tracker_core` gated by `present` [C]: a class with no raw detection
+    this frame keeps its state, outputs nothing and flags nothing."""
+    new_st, outputs, flags = _tracker_core(st, pre, tlwh, conf, det_valid, hp, width, height, det_order)
+    k = hp.capacity
+
+    def keep(new, old):
+        p = present.reshape(present.shape + (1,) * (new.dim() - 1))
+        return torch.where(p, new, old)
+
+    small = ("mean", "cov", "track_id", "state", "hits", "age", "tsu", "last_conf", "next_id", "overflow")
+    new_st = new_st._replace(**{f: keep(getattr(new_st, f), getattr(st, f)) for f in small})
+    outputs = TrackerOutputs(*(keep(o, torch.zeros_like(o)) for o in outputs))
+    flags = TrackerFlags(
+        matched=flags.matched & present[:, None],
+        gcol=keep(flags.gcol, torch.zeros_like(flags.gcol)),
+        delete=flags.delete & present[:, None],
+        src=keep(flags.src, torch.full_like(flags.src, k)),
+        conf_after=flags.conf_after & present[:, None],
+    )
+    return new_st, outputs, flags
