@@ -18,6 +18,9 @@ PORT_MODULES = [
     "vehicle_counting_tpu_torch.ops.nms",
     "vehicle_counting_tpu_torch.ops.crops",
     "vehicle_counting_tpu_torch.ops.cascade",
+    "vehicle_counting_tpu_torch.ops.assignment",
+    "vehicle_counting_tpu_torch.ops.reid_block",
+    "vehicle_counting_tpu_torch.ops.conv_s2",
     "vehicle_counting_tpu_torch.models.layers",
     "vehicle_counting_tpu_torch.models.yolo",
     "vehicle_counting_tpu_torch.models.detector",

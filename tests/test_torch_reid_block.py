@@ -1,0 +1,114 @@
+"""PyTorch port, kernel K5: the fused ReID stage-1 block's plain version
+against the TPU kernel in interpret mode, and the embedding with the block
+switched on against JAX's, on the same numpy weights (carried across by
+models/convert.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import vehicle_counting_tpu.models.reid as jreid
+from vehicle_counting_tpu.ops.pallas.reid_block import reid_block64_pallas
+from vehicle_counting_tpu_torch.models import reid as treid
+from vehicle_counting_tpu_torch.models.convert import reid_block64_from_jax, reid_params_from_jax
+from vehicle_counting_tpu_torch.ops import reid_block as trb
+from vehicle_counting_tpu_torch.testing import reid_block_params
+
+# f32: conv summation order differs (XLA:CPU patch matmul vs oneDNN);
+# bf16: h1 and the output are rounded to bf16 (2^-8 relative), so a sum
+# that lands near a rounding boundary flips by one bf16 ulp
+TOL = {"float32": dict(rtol=0, atol=1e-4), "bfloat16": dict(rtol=1.6e-2, atol=1e-2)}
+
+
+def _jax_fold(bp, bs):
+    a = jax.lax.rsqrt(jnp.asarray(bs["var"]) + jreid.BN_EPS) * bp["scale"]
+    return a, bp["bias"] - bs["mean"] * a
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_interpret(dtype):
+    """N = 5 pads the TPU kernel's last group of G = 4 crops."""
+    rng = np.random.default_rng(30)
+    p, s = reid_block_params(rng)
+    x = (rng.standard_normal((5, 25, 25, 64)) * 0.5).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = reid_block64_pallas(
+        jnp.asarray(x, jdt), p["conv1"]["w"], p["conv2"]["w"],
+        *_jax_fold(p["bn1"], s["bn1"]), *_jax_fold(p["bn2"], s["bn2"]),
+        use_bf16=dtype == "bfloat16", interpret=True,
+    )
+    ops = reid_block64_from_jax(p, s)
+    tx = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(getattr(torch, dtype))
+    got = trb.reid_block64(tx, ops["w1"], ops["w2"], ops["a1"], ops["b1"], ops["a2"], ops["b2"])
+    assert got.dtype == tx.dtype and got.shape == (5, 64, 25, 25)
+    np.testing.assert_allclose(got.float().permute(0, 2, 3, 1).numpy(), np.asarray(want, np.float32),
+                               **TOL[dtype])
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def reid_weights():
+    jp, js = jax.jit(jreid.init_reid)(jax.random.PRNGKey(3))
+    rng = np.random.default_rng(31)
+    js = jax.tree.map(lambda a: jnp.asarray(rng.uniform(0.5, 1.5, a.shape).astype(np.float32)), js)
+    return jp, js, reid_params_from_jax(_np(jp), _np(js))
+
+
+def test_reid_forward_with_block_matches_jax(reid_weights, monkeypatch):
+    """Both packages with the stage-1 block switched on, f32, N = 4."""
+    jp, js, (tp, ts) = reid_weights
+    crops = np.random.default_rng(32).standard_normal((4, 50, 50, 3)).astype(np.float32)
+    monkeypatch.setattr(jreid, "FORCE_PALLAS_REID_BLOCK", True)
+    want, _ = jreid.reid_forward(jp, js, jnp.asarray(crops), train=False, reid=True)
+    monkeypatch.setattr(treid, "FORCE_REID_BLOCK_KERNEL", True)
+    calls = []
+    monkeypatch.setattr(treid, "reid_block64", lambda *a: calls.append(1) or trb.reid_block64(*a))
+    got = treid.reid_forward(tp, ts, torch.from_numpy(crops))
+    assert len(calls) == 2  # layer1_0 and layer1_1
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("switch,env,expect", [
+    (None, None, 0), (None, "1", 2), (True, None, 2), (False, "1", 0), (True, "0", 0),
+])
+def test_block_switch(reid_weights, monkeypatch, switch, env, expect):
+    """Off by default; FORCE_REID_BLOCK_KERNEL or FORCE_PALLAS_REID_BLOCK
+    turns it on, =0 / False wins, as in the JAX package."""
+    _, _, (tp, ts) = reid_weights
+    monkeypatch.setattr(treid, "FORCE_REID_BLOCK_KERNEL", switch)
+    if env is None:
+        monkeypatch.delenv("FORCE_PALLAS_REID_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("FORCE_PALLAS_REID_BLOCK", env)
+    calls = []
+    monkeypatch.setattr(treid, "reid_block64", lambda *a: calls.append(1) or trb.reid_block64(*a))
+    treid.reid_forward(tp, ts, torch.zeros((2, 50, 50, 3)))
+    assert len(calls) == expect
+
+
+def test_kernel_rejects_other_shapes():
+    w = torch.zeros((3, 3, 64, 64))
+    v = torch.zeros(64)
+    with pytest.raises(ValueError, match=r"\[N, 64, 25, 25\]"):
+        trb._launch(torch.zeros((2, 64, 13, 13)), w, w, v, v, v, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the block kernel is CUDA C++ with no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False  # the plain version's f32 convs
+    rng = np.random.default_rng(33)
+    p, s = reid_block_params(rng)
+    ops = {k: v.cuda() for k, v in reid_block64_from_jax(p, s).items()}
+    x = torch.from_numpy(rng.standard_normal((37, 64, 25, 25)).astype(np.float32)).to(getattr(torch, dtype)).cuda()
+    args = (x, ops["w1"], ops["w2"], ops["a1"], ops["b1"], ops["a2"], ops["b2"])
+    got = trb.reid_block64(*args)
+    torch.testing.assert_close(got.float(), trb.reid_block64_plain(*args).float(), **TOL[dtype])

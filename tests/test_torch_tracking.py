@@ -1,6 +1,7 @@
 """PyTorch port, tracker: Kalman filter, the scipy-exact assignment, the
-association (kernel K2's plain version) and the per-frame DeepSORT core,
-against the JAX package on the same numpy inputs."""
+association (kernel K2's plain version, and the staged route over kernel
+K4's plain version) and the per-frame DeepSORT core, against the JAX
+package on the same numpy inputs."""
 
 import functools
 
@@ -19,14 +20,16 @@ from vehicle_counting_tpu.tracking.deepsort import DeepSortParams as JDP
 from vehicle_counting_tpu.tracking.deepsort import deepsort_frame_core as j_core
 from vehicle_counting_tpu.tracking.deepsort import init_states as j_init
 from vehicle_counting_tpu.tracking.tracker import TrackerParams as JTP
-from vehicle_counting_tpu.tracking.tracker import _associate_xla, _stable_rank
+from vehicle_counting_tpu.tracking.tracker import _associate_xla, _cascade_kernel_mode, _stable_rank
 from vehicle_counting_tpu_torch.ops import cascade as tcas
 from vehicle_counting_tpu_torch.testing import association_problem
 from vehicle_counting_tpu_torch.tracking import kalman as tk
+from vehicle_counting_tpu_torch.tracking import tracker as trk
 from vehicle_counting_tpu_torch.tracking.assignment import BIG, solve_assignment_sub as t_solve
 from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, deepsort_frame_core, init_states
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams
 
+_staged = trk._associate_staged
 NAMES = ["gated", "iou", "lvl_of", "tentative", "track_id", "iou_order", "det_valid", "det_order"]
 
 
@@ -90,22 +93,32 @@ def _jax_associate(k, max_age):
     return jax.jit(lambda *a: _associate_xla(*a, hp))
 
 
+@pytest.mark.parametrize("route", ["kernel", "staged"])
 @pytest.mark.parametrize("kind", ["random", "ties", "empty"])
-def test_association_bitwise_equal_to_jax(kind):
+def test_association_bitwise_equal_to_jax(kind, route):
+    """K2's plain version, and the [C]-batched staged route, per class
+    against JAX `_associate_xla`."""
     k, c, max_age = 12, 4, 5
     fn = _jax_associate(k, max_age)
+    hp = TrackerParams(capacity=k, max_age=max_age)
     rng = np.random.default_rng({"random": 10, "ties": 11, "empty": 12}[kind])
     for _ in range(4):
         pr = association_problem(rng, c, k, max_age, kind)
-        det_free, det_key, out_row = tcas.cascade_match_classparallel(
-            *(torch.from_numpy(pr[n]) for n in NAMES), 0.2, 0.6, max_age=max_age)
+        args = [torch.from_numpy(pr[n]) for n in NAMES]
+        if route == "kernel":
+            det_free, det_key, out_row = tcas.cascade_match_classparallel(*args, 0.2, 0.6, max_age=max_age)
+        else:
+            det_free, track_col, det_key = trk._associate_staged(*args, hp)
         for ci in range(c):
             jf, jcol, jkey = map(np.asarray, fn(*(jnp.asarray(pr[n][ci]) for n in NAMES)))
             np.testing.assert_array_equal(det_free[ci].numpy(), jf)
             np.testing.assert_array_equal(det_key[ci].numpy(), jkey)
-            want_row = np.full(k, -1)
-            want_row[jcol[jcol >= 0]] = np.nonzero(jcol >= 0)[0]
-            np.testing.assert_array_equal(out_row[ci].numpy(), want_row)
+            if route == "kernel":
+                want_row = np.full(k, -1)
+                want_row[jcol[jcol >= 0]] = np.nonzero(jcol >= 0)[0]
+                np.testing.assert_array_equal(out_row[ci].numpy(), want_row)
+            else:
+                np.testing.assert_array_equal(track_col[ci].numpy(), jcol)
 
 
 def test_association_matches_pallas_kernel_interpret():
@@ -168,14 +181,15 @@ def _scenario(seed, frames=20, n=24, c=3, feat=512):
     return out
 
 
-def test_frame_core_matches_jax_over_frames():
-    k, c, out_hw = 12, 3, (260, 300)
-    jhp = JDP(tracker=JTP(capacity=k, max_age=6, n_init=3), num_classes=c)
-    thp = DeepSortParams(tracker=TrackerParams(capacity=k, max_age=6, n_init=3), num_classes=c)
+def _run_frames(frames, k, max_age, out_hw=(260, 300), c=3):
+    """JAX and the port's deepsort_frame_core over the frames; asserts each
+    frame's outputs equal and returns (confirmed outputs, states)."""
+    jhp = JDP(tracker=JTP(capacity=k, max_age=max_age, n_init=3), num_classes=c)
+    thp = DeepSortParams(tracker=TrackerParams(capacity=k, max_age=max_age, n_init=3), num_classes=c)
     jstep = jax.jit(lambda st, *a: j_core(st, *a, jhp, out_hw))
     jst, tst = j_init(jhp), init_states(thp)
     confirmed = 0
-    for feats, boxes, scores, classes, valid in _scenario(20):
+    for feats, boxes, scores, classes, valid in frames:
         jst, jo = jstep(jst, *(jnp.asarray(x) for x in (feats, boxes, scores, classes, valid)))
         tst, to = deepsort_frame_core(tst, *(torch.from_numpy(x) for x in (feats, boxes, scores, classes, valid)),
                                       thp, out_hw)
@@ -184,6 +198,19 @@ def test_frame_core_matches_jax_over_frames():
         np.testing.assert_allclose(to.boxes.numpy(), np.asarray(jo.boxes), atol=1e-4)
         np.testing.assert_allclose(to.scores.numpy(), np.asarray(jo.scores), atol=1e-6)
         confirmed += int(np.asarray(jo.mask).sum())
+    return confirmed, jst, tst
+
+
+@pytest.mark.parametrize("route", ["auto", "staged"])
+def test_frame_core_matches_jax_over_frames(route, monkeypatch):
+    """Both association routes of the port: auto (K2) and the staged
+    route forced (K4 per stage)."""
+    if route == "staged":
+        monkeypatch.setattr(trk, "FORCE_CASCADE_KERNEL", False)
+    calls = []
+    monkeypatch.setattr(trk, "_associate_staged", lambda *a: calls.append(1) or _staged(*a))
+    confirmed, jst, tst = _run_frames(_scenario(20), 12, 6)
+    assert bool(calls) == (route == "staged")
     np.testing.assert_array_equal(tst.track_id.numpy(), np.asarray(jst.track_id))
     np.testing.assert_array_equal(tst.gallery_count.numpy(), np.asarray(jst.gallery_count))
     np.testing.assert_allclose(tst.mean.numpy(), np.asarray(jst.mean), rtol=1e-4, atol=1e-3)
@@ -204,8 +231,44 @@ def test_association_kernel_matches_plain_on_card():
             assert torch.equal(g.cpu(), w)
 
 
+def test_key_gate_takes_staged_route(monkeypatch):
+    """Past K2's key range, (max_age + 2) * K >= 2^22, the port takes the
+    staged route where JAX's dispatch returns "off", and counts the same."""
+    k, max_age = 8, 1 << 19
+    assert _cascade_kernel_mode(JTP(capacity=k, max_age=max_age)) == "off"
+    assert not trk._use_cascade_kernel(TrackerParams(capacity=k, max_age=max_age))
+    assert trk._use_cascade_kernel(TrackerParams(capacity=k, max_age=(1 << 19) - 3))
+    calls = []
+    monkeypatch.setattr(trk, "_associate_staged", lambda *a: calls.append(1) or _staged(*a))
+    confirmed, _, _ = _run_frames(_scenario(21, frames=6), k, max_age)
+    assert calls and confirmed > 0
+
+
+def test_association_rejects_k_past_256():
+    k = 257
+    z = torch.zeros((1, k), dtype=torch.int32)
+    with pytest.raises(ValueError, match="K <= 256"):
+        trk._associate(torch.zeros((1, k, k)), torch.zeros((1, k, k)), z, z.bool(), z, z, z.bool(), z,
+                       TrackerParams(capacity=k, max_age=3))
+
+
 def test_kernel_gate_raises_past_key_range():
     pr = association_problem(np.random.default_rng(15), 2, 8, 4, "random")
     args = [torch.from_numpy(pr[n]) for n in NAMES]
     with pytest.raises(ValueError, match="key range"):
         tcas._launch(*args, 0.2, 0.6, (1 << 22) // 8)
+
+
+@pytest.mark.cuda
+def test_staged_route_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the assignment kernel is CUDA C++ with no CPU mode")
+    rng = np.random.default_rng(16)
+    hp = TrackerParams(capacity=64, max_age=30)
+    for kind in ("random", "ties", "empty"):
+        pr = association_problem(rng, 4, 64, 30, kind)
+        cpu = [torch.from_numpy(pr[n]) for n in NAMES]
+        got = trk._associate_staged(*(x.cuda() for x in cpu), hp)
+        want = trk._associate_staged(*cpu, hp)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)

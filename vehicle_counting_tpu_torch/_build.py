@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled with `nvcc`
 at its first use into `build/kernels/` at the repository root (a
-directory `.gitignore` lists), keyed by a hash of the source and flags, so
-an edited source is rebuilt and an unchanged one is loaded as built.
+directory `.gitignore` lists), keyed by a hash of the source, the headers
+it includes from `csrc/` and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as built. `load_all` starts one
+`nvcc` per source at once.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without `nvcc`.
 """
@@ -13,10 +15,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "kernels")
@@ -45,28 +48,73 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _sources(src: str, seen=None) -> list:
+    """`src` and, recursively, every header it includes from `csrc/`."""
+    seen = [] if seen is None else seen
+    if src in seen:
+        return seen
+    seen.append(src)
+    with open(src) as f:
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(), re.M):
+            path = os.path.join(CSRC_DIR, inc)
+            if os.path.exists(path):
+                _sources(path, seen)
+    return seen
+
+
+def _target(name: str):
+    """(source, path of the built library) for `csrc/<name>.cu`."""
+    src = os.path.join(CSRC_DIR, name + ".cu")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def _start(name: str):
+    """Start nvcc for `name` unless built; -> (proc, tmp, out, src) or None."""
+    src, out = _target(name)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tmp, out, src
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out, src = job
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{stdout}\n{stderr}")
+    BUILD_LOGS[name] = stderr.strip()
+    os.replace(tmp, out)
+
+
+def load_all(names: Iterable[str]) -> None:
+    """Compile every missing library of `names` in parallel, then load all."""
+    names = list(names)
+    with _LOCK:
+        jobs = {n: _start(n) for n in names if n not in _LIBS}
+        for n, job in jobs.items():
+            if job is not None:
+                _finish(n, job)
+    for n in names:
+        load(n)
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load `csrc/<name>.cu` as a shared library."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC_DIR, name + ".cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-            BUILD_LOGS[name] = proc.stderr.strip()
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
+        job = _start(name)
+        if job is not None:
+            _finish(name, job)
+        lib = ctypes.CDLL(_target(name)[1])
         _LIBS[name] = lib
         return lib
 

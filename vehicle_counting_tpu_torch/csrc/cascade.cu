@@ -17,7 +17,9 @@
 // K + 1 so transposed reads are bank-conflict free; matrices too large for
 // shared memory are read from global memory instead), keeps one column per
 // thread in registers, and does the tie-broken argmin as ONE 64-bit
-// warp-shuffle min over (ordered f32 value, order key, lane).
+// warp-shuffle min over (ordered f32 value, order key, lane). That
+// Dijkstra-and-augment loop is jv.cuh's insert_rows, shared with the
+// batched assignment kernel (assignment.cu).
 //
 // Same masked, key-ordered form as the Pallas kernel: no compaction; ties
 // go to the first minimum in the reference's column order (minimum order
@@ -29,10 +31,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "jv.cuh"
+
 namespace {
 
 constexpr int IMAX = 2147483647;
-constexpr float INF = 1e18f;
 constexpr int LANE_BITS = 9;  // lanes 0..K (K <= 256) and the block's spare lanes
 
 struct Shared {
@@ -61,44 +64,9 @@ struct Shared {
 
 constexpr int kIntArrays = 18;  // u .. rej_track, (K+1) words each
 
-__device__ __forceinline__ unsigned long long pack(float x, int key, int lane) {
-  x = x + 0.0f;  // -0 -> +0: equal values must tie
-  unsigned int b = __float_as_uint(x);
-  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((unsigned long long)b << 32) | ((unsigned int)key << LANE_BITS) | (unsigned int)lane;
-}
-
-__device__ __forceinline__ float unpack_value(unsigned long long q) {
-  unsigned int b = (unsigned int)(q >> 32);
-  b = (b & 0x80000000u) ? (b & 0x7fffffffu) : ~b;
-  return __uint_as_float(b);
-}
-
-__device__ unsigned long long block_min_u64(unsigned long long x, unsigned long long* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    unsigned long long y = __shfl_down_sync(0xffffffffu, x, o);
-    x = y < x ? y : x;
-  }
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  __syncthreads();  // the previous call's broadcast has been read
-  if (l == 0) red[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    const int nw = blockDim.x >> 5;
-    x = l < nw ? red[l] : ~0ull;
-    for (int o = 16; o > 0; o >>= 1) {
-      unsigned long long y = __shfl_down_sync(0xffffffffu, x, o);
-      x = y < x ? y : x;
-    }
-    if (l == 0) red[0] = x;
-  }
-  __syncthreads();
-  return red[0];
-}
-
 __device__ __forceinline__ int block_min_i32(int x, unsigned long long* red) {
   // non-negative ints only (levels and IMAX)
-  return (int)block_min_u64((unsigned long long)(unsigned int)x, red);
+  return (int)vct_jv::block_min_u64((unsigned long long)(unsigned int)x, red);
 }
 
 __device__ __forceinline__ float cost_at(const float* m, int ld, float clampv, int tr, int de) {
@@ -128,7 +96,6 @@ __device__ void stage(Shared& s, int K, const float* m, int ld, float clampv, fl
     s.u[t] = 0.0f;
     s.p[t] = -1;
   }
-  float v = 0.0f;
   __syncthreads();
   if (t < K && s.ins_part[t]) {
     const int kt = s.ins_key[t];
@@ -138,52 +105,10 @@ __device__ void stage(Shared& s, int K, const float* m, int ld, float clampv, fl
     s.ins_orig[r] = t;
   }
   __syncthreads();
-
-  for (int pos = 0; pos < n_ins; ++pos) {
-    if (t == 0) s.p[K] = s.ins_orig[pos];
-    float minv = INF;
-    int way = K;
-    bool used = false;
-    int j0 = K;
-    __syncthreads();
-    // each step marks one more column used, so K + 1 steps bound the search
-    for (int step = 0; step <= K; ++step) {
-      const int i0 = s.p[j0];
-      if (i0 == -1) break;  // j0 is free: augment
-      if (t == j0) used = true;
-      const bool cand = live && !used;
-      if (cand) {
-        const float c = flip ? cost_at(m, ld, clampv, t, i0) : cost_at(m, ld, clampv, i0, t);
-        const float cur = c - s.u[i0] - v;
-        if (cur < minv) {
-          minv = cur;
-          way = j0;
-        }
-      }
-      const unsigned long long best = block_min_u64(pack(cand ? minv : INF, skey, t), s.red);
-      const float delta = unpack_value(best);
-      const int j1 = (int)(best & ((1u << LANE_BITS) - 1));
-      if (used) {
-        s.u[s.p[t]] += delta;  // rows of used columns are distinct
-        v -= delta;
-      } else if (live) {
-        minv -= delta;
-      }
-      j0 = j1;
-      __syncthreads();
-    }
-    if (t < K) s.way[t] = way;
-    __syncthreads();
-    if (t == 0) {
-      int j = j0;
-      while (j != K) {
-        const int j1 = s.way[j];
-        s.p[j] = s.p[j1];
-        j = j1;
-      }
-    }
-    __syncthreads();
-  }
+  vct_jv::insert_rows<LANE_BITS>(
+      n_ins, K, s.ins_orig, live, skey,
+      [&](int i0) { return flip ? cost_at(m, ld, clampv, t, i0) : cost_at(m, ld, clampv, i0, t); },
+      s.u, s.p, s.way, s.red);
 
   // accept / reject the stage's pairs
   if (t < K) {

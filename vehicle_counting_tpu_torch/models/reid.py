@@ -10,15 +10,23 @@ a bitwise-neutral layout trick for the TPU.
 
 Params and stats are plain dicts (OIHW conv weights), carried across from
 the JAX pytrees by `models/convert.py::reid_params_from_jax`.
+
+The two stage-1 blocks (64 channels at 25x25) can run as one fused kernel
+each (K5, `ops/reid_block.py`), off by default as in the JAX package and
+switched by `FORCE_REID_BLOCK_KERNEL` or the environment variable
+`FORCE_PALLAS_REID_BLOCK` (`_reid_block_on`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from vehicle_counting_tpu_torch.ops.reid_block import fold_bn, hwio, reid_block64
 
 EMBED_DIM = 512
 BN_EPS = 1e-5
@@ -81,14 +89,45 @@ def _basic_block(p, s, x, stride: int, dtype):
     return torch.relu(x + y)
 
 
+# Counterpart of the JAX `models/reid.py::FORCE_PALLAS_REID_BLOCK`. None:
+# auto = OFF, as in the JAX package; True: run the fused stage-1 block
+# (K5); False: never. The environment variable FORCE_PALLAS_REID_BLOCK
+# (=1 on, =0 off) drives both packages.
+FORCE_REID_BLOCK_KERNEL = None
+
+
+def _reid_block_on() -> bool:
+    """The JAX `_reid_block_mode` decision: fused stage-1 block or not."""
+    env = os.environ.get("FORCE_PALLAS_REID_BLOCK")
+    if FORCE_REID_BLOCK_KERNEL is False or env == "0":
+        return False
+    return FORCE_REID_BLOCK_KERNEL is True or env == "1"
+
+
+def _block_fused(p, s, x, dtype):
+    """Stage-1 block through K5 (BN folded), f32 out like `_basic_block`."""
+    a1, b1 = fold_bn(p["bn1"]["scale"], p["bn1"]["bias"], s["bn1"]["mean"], s["bn1"]["var"], BN_EPS)
+    a2, b2 = fold_bn(p["bn2"]["scale"], p["bn2"]["bias"], s["bn2"]["mean"], s["bn2"]["var"], BN_EPS)
+    return reid_block64(x.to(dtype), hwio(p["conv1"]["w"]), hwio(p["conv2"]["w"]), a1, b1, a2, b2).float()
+
+
 def reid_forward_nchw(params, stats, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """x [N, 3, 50, 50] normalised crops -> L2-normalised [N, 512] f32."""
     y = _conv(x, params["stem"]["w"], 1, 1, dtype) + params["stem"]["b"].view(1, -1, 1, 1)
     y = F.max_pool2d(torch.relu(_bn(y, params["stem"]["bn"], stats["stem"])), 3, 2, 1)
+    fused = _reid_block_on()
     for si, (_, _, ds) in enumerate(STAGES):
         for bi in range(2):
             name = f"layer{si + 1}_{bi}"
-            y = _basic_block(params[name], stats[name], y, 2 if (ds and bi == 0) else 1, dtype)
+            stride = 2 if (ds and bi == 0) else 1
+            # the JAX conditions: stride 1, no downsample, 64 x 25 x 25, and
+            # bf16 on the card (the CPU runs the plain version at any dtype)
+            if (fused and stride == 1 and "down" not in params[name]
+                    and tuple(y.shape[1:]) == (64, 25, 25)
+                    and (dtype == torch.bfloat16 or y.device.type == "cpu")):
+                y = _block_fused(params[name], stats[name], y, dtype)
+                continue
+            y = _basic_block(params[name], stats[name], y, stride, dtype)
     emb = F.avg_pool2d(y, 4, 1).flatten(1)  # 50x50 input -> 4x4 -> 1x1
     return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
 

@@ -1,0 +1,81 @@
+"""YOLO layer 1 as one kernel: conv3x3 stride 2 (32 -> 64) + bias + SiLU (K6).
+
+Port of the TPU kernel `ops/pallas/conv_s2.py::conv1_s2_silu_pallas` into
+the CUDA kernel `csrc/conv_s2.cu`, with the plain version
+`conv1_s2_silu_plain` beside it. Stand-alone, as in the JAX package: the
+detector does not call it (its layer 1 stays `models/layers.py::conv_block`).
+
+Contract: x [B, H, W, 32] (the JAX layout, NHWC), w HWIO [3, 3, 32, 64],
+b [64]; H % 32 == 0 and W % 64 == 0. Conv operands in x.dtype (bf16 or
+f32) accumulated in f32, bias and SiLU in f32, output [B, H/2, W/2, 64]
+in x.dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from vehicle_counting_tpu_torch import _build
+
+CIN = 32
+COUT = 64
+
+
+def _check_shapes(x, w):
+    b, h, wd, cin = x.shape
+    if cin != CIN or tuple(w.shape) != (3, 3, CIN, COUT):
+        raise ValueError(f"unsupported conv shape {tuple(x.shape)} / {tuple(w.shape)}")
+    if h % 32 != 0 or wd % 64 != 0:
+        raise ValueError(f"needs H%32==0 and W%64==0, got {h}x{wd}")
+
+
+def conv1_s2_silu_plain(x, w, b):
+    """Plain version of K6 (F.conv2d in f32 on the compute-dtype values,
+    so TF32 must be off for it on the card)."""
+    _check_shapes(x, w)
+    xf = x.permute(0, 3, 1, 2).float()
+    wf = w.to(x.dtype).float().permute(3, 2, 0, 1)
+    y = F.conv2d(xf, wf, stride=2, padding=1) + b.float().view(1, -1, 1, 1)
+    return F.silu(y).to(x.dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def _launch(x, w, b):
+    """Check the operands and launch the CUDA kernel."""
+    _check_shapes(x, w)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if w.device != x.device or b.device != x.device or tuple(b.shape) != (COUT,):
+        raise ValueError(f"w and b [{COUT}] must be on {x.device}")
+    bsz, h, wd, _ = x.shape
+    x = x.contiguous()
+    w = w.to(x.dtype).contiguous()
+    bias = b.float().contiguous()
+    out = torch.empty((bsz, h // 2, wd // 2, COUT), dtype=x.dtype, device=x.device)
+    fn = _build.load("conv_s2").vct_conv1_s2_silu
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz, h, wd,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "layer-1 conv kernel")
+    return out
+
+
+def conv1_s2_silu(x, w, b):
+    """K6: silu(conv3x3_s2_p1(x, w) + b) -> [B, H/2, W/2, 64] in x.dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    `csrc/conv_s2.cu` or raise.
+    """
+    if x.device.type == "cpu":
+        return conv1_s2_silu_plain(x, w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    out = _launch(x, w, b)
+    conv1_s2_silu.launches += 1
+    return out
+
+
+conv1_s2_silu.launches = 0

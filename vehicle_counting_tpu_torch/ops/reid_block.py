@@ -1,0 +1,102 @@
+"""Fused ReID stage-1 BasicBlock (kernel K5).
+
+Port of the TPU kernel `ops/pallas/reid_block.py::reid_block64_pallas` into
+the CUDA kernel `csrc/reid_block.cu`, with the plain version
+`reid_block64_plain` beside it:
+
+    out = relu(bn2(conv3x3(h1)) + x),   h1 = relu(bn1(conv3x3(x)))
+
+BN folded to a * v + b (`fold_bn`). Numerics as the TPU kernel's: conv
+operands in the compute dtype (x.dtype: bf16 or f32) with f32
+accumulation, h1 rounded to the compute dtype (the pad acts as zeros),
+y = h2 * a2 + b2 + x in f32, relu, output in x.dtype. Activations are
+NCHW [N, 64, 25, 25], the port's ReID layout; weights HWIO [3, 3, 64, 64]
+(`hwio` from the port's OIHW, `models/convert.py` from the JAX pytree).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from vehicle_counting_tpu_torch import _build
+
+C = 64
+S = 25
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fold_bn(scale, bias, mean, var, eps: float):
+    """Inference BN as (a, b) with y = x * a + b, in f32:
+    a = rsqrt(var + eps) * scale, b = bias - mean * a."""
+    a = torch.rsqrt(var.float() + eps) * scale.float()
+    return a, bias.float() - mean.float() * a
+
+
+def hwio(w_oihw: torch.Tensor) -> torch.Tensor:
+    """OIHW conv weights -> the kernel's HWIO [kh, kw, cin, cout], contiguous."""
+    return w_oihw.permute(2, 3, 1, 0).contiguous()
+
+
+def _conv(v: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
+    """3x3 pad-1 conv of compute-dtype operands, accumulated in f32."""
+    return F.conv2d(v.float(), w_hwio.to(v.dtype).float().permute(3, 2, 0, 1), padding=1)
+
+
+def reid_block64_plain(x, w1, w2, a1, b1, a2, b2):
+    """Plain version of K5 (F.conv2d in f32 on the compute-dtype values,
+    so TF32 must be off for it on the card)."""
+    row = (1, -1, 1, 1)
+    h1 = torch.relu(_conv(x, w1) * a1.view(row) + b1.view(row)).to(x.dtype)
+    y = _conv(h1, w2) * a2.view(row) + b2.view(row) + x.float()
+    return torch.relu(y).to(x.dtype)
+
+
+def _launch(x, w1, w2, a1, b1, a2, b2):
+    """Check the operands and launch the CUDA kernel."""
+    if x.dim() != 4 or tuple(x.shape[1:]) != (C, S, S):
+        raise ValueError(f"x must be [N, {C}, {S}, {S}], got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    for name, w in (("w1", w1), ("w2", w2)):
+        if tuple(w.shape) != (3, 3, C, C) or w.device != x.device:
+            raise ValueError(f"{name} must be HWIO [3, 3, {C}, {C}] on {x.device}, got {tuple(w.shape)} on {w.device}")
+    ab = torch.stack([a1, b1, a2, b2]).float().contiguous()
+    if ab.shape != (4, C) or ab.device != x.device:
+        raise ValueError(f"a1, b1, a2, b2 must be [{C}] on {x.device}")
+    bf16 = x.dtype == torch.bfloat16
+    x = x.contiguous()
+    w1 = w1.to(x.dtype).contiguous()
+    w2 = w2.to(x.dtype).contiguous()
+    # f32 tiles do not both fit in shared memory: x is read zero-padded from global
+    xpad = None if bf16 else F.pad(x, (1, 1, 1, 1))
+    out = torch.empty_like(x)
+    fn = _build.load("reid_block").vct_reid_block64
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    rc = fn(x.data_ptr(), None if xpad is None else xpad.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            ab.data_ptr(), out.data_ptr(), x.shape[0], int(bf16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "reid block kernel")
+    return out
+
+
+def reid_block64(x, w1, w2, a1, b1, a2, b2):
+    """K5: relu(bn2(conv2(relu(bn1(conv1(x))))) + x) for x [N, 64, 25, 25].
+
+    w1, w2 HWIO [3, 3, 64, 64]; a1, b1, a2, b2 [64] folded BN (`fold_bn`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    `csrc/reid_block.cu` or raise.
+    """
+    if x.device.type == "cpu":
+        return reid_block64_plain(x, w1, w2, a1, b1, a2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    out = _launch(x, w1, w2, a1, b1, a2, b2)
+    reid_block64.launches += 1
+    return out
+
+
+reid_block64.launches = 0

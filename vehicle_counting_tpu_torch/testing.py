@@ -62,6 +62,45 @@ def association_problem(rng: np.random.Generator, c: int, k: int, max_age: int,
     }
 
 
+def clamp_tie_problems(rng: np.random.Generator, n: int, s: int = 64, hi: int = 40):
+    """n compacted [S, S] assignment problems with min_cost_matching's clamp
+    ties: an nr x nc block (1 <= nr, nc < hi) of uniform costs clamped at
+    0.2 + 1e-5, 30 % of them gated to exactly that value, BIG elsewhere.
+    Returns (costs [n, S, S] f32, nr [n] i32, nc [n] i32)."""
+    costs = np.full((n, s, s), BIG, np.float32)
+    nr = rng.integers(1, hi, n).astype(np.int32)
+    nc = rng.integers(1, hi, n).astype(np.int32)
+    for i in range(n):
+        sub = np.minimum(rng.uniform(0, 1, (nr[i], nc[i])).astype(np.float32), 0.2 + 1e-5)
+        sub[rng.uniform(0, 1, (nr[i], nc[i])) < 0.3] = 0.2 + 1e-5
+        costs[i, : nr[i], : nc[i]] = sub
+    return costs, nr, nc
+
+
+def reid_block_params(rng: np.random.Generator, c: int = 64):
+    """Numpy (params, stats) of one stage-1 BasicBlock in the JAX layout
+    (HWIO convs, BN scale/bias and non-trivial running stats)."""
+    p = {
+        "conv1": {"w": (rng.standard_normal((3, 3, c, c)) * 0.05).astype(np.float32)},
+        "conv2": {"w": (rng.standard_normal((3, 3, c, c)) * 0.05).astype(np.float32)},
+    }
+    s = {}
+    for i in (1, 2):
+        p[f"bn{i}"] = {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                       "bias": (rng.standard_normal(c) * 0.1).astype(np.float32)}
+        s[f"bn{i}"] = {"mean": (rng.standard_normal(c) * 0.1).astype(np.float32),
+                       "var": rng.uniform(0.5, 2.0, c).astype(np.float32)}
+    return p, s
+
+
+def conv1_s2_inputs(rng: np.random.Generator, shape=(1, 32, 64, 32)):
+    """Numpy NHWC input and JAX-layout {"w": HWIO, "b"} of the layer-1 conv."""
+    x = (rng.standard_normal(shape) * 0.5).astype(np.float32)
+    p = {"w": (rng.standard_normal((3, 3, shape[-1], 64)) * 0.1).astype(np.float32),
+         "b": (rng.standard_normal(64) * 0.05).astype(np.float32)}
+    return x, p
+
+
 def crop_boxes(rng: np.random.Generator, d: int, h: int, w: int) -> np.ndarray:
     """[D, 4] xyxy boxes in a [h, w] frame: ordinary boxes plus boxes that
     touch or cross the edges, one-pixel boxes and degenerate (x2 < x1)

@@ -12,11 +12,14 @@ linear_assignment.py, iou_matching.py):
   * an appearance gallery ring [K, budget, F] with in-ring pending writes
     revealed on confirmation (`tracker_feature_post`);
   * association: matching cascade + IoU stage, one launch of kernel K2
-    for all classes (`_associate` -> ops/cascade.py);
+    for all classes (`_associate` -> ops/cascade.py), or the staged route
+    with one launch of kernel K4 per stage (`_associate_staged` ->
+    ops/assignment.py) where K2's key range ends or the switch says so;
   * a class with no raw detection this frame does not advance.
 
-On the card every per-frame step is sync-free: data-dependent choices are
-masked selects and scatters, never host branches.
+On the card the K2 route's per-frame step is sync-free: data-dependent
+choices are masked selects and scatters, never host branches. The staged
+route reads one number per frame, the count of cascade stages to run.
 """
 
 from __future__ import annotations
@@ -24,11 +27,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from vehicle_counting_tpu_torch.ops.boxes import tlwh_iou_matrix, tlwh_to_xyah
+from vehicle_counting_tpu_torch.ops.assignment import solve_uniform_batched
 from vehicle_counting_tpu_torch.ops.cascade import (
     IMAX,
+    KEY_LIMIT,
+    MAX_K,
+    _clamp_value,
     cascade_match_batched,
     cascade_match_classparallel,
 )
@@ -133,15 +141,119 @@ def _appearance_cost(st: TrackerState, feat: torch.Tensor, hp: TrackerParams) ->
     return dist.amin(dim=2)
 
 
+def _match_stage(cost, rows, det_free, track_col, threshold, row_order, det_key, stage_base):
+    """One min_cost_matching pass for [C] classes at once (all [C, K]).
+
+    Counterpart of the JAX `tracker.py::_match_stage`: rows and free
+    detections are ranked stably and the clamped cost compacted with
+    gathers (exact), so the solver sees the reference's row and column
+    orders; one K4 launch solves every class. Rejected matches demote their
+    detection to stage_base * K + (rejection rank in row order); stage_base
+    is [C]. A class with no row or no free detection is left as it was.
+    Returns (det_free, track_col, det_key).
+    """
+    c, k = rows.shape
+    dev = rows.device
+    nr = rows.sum(-1)
+    nc = det_free.sum(-1)
+    do = (nr > 0) & (nc > 0)
+    nr, nc = torch.where(do, nr, 0), torch.where(do, nc, 0)  # a no-op inserts nothing
+    imax = torch.full_like(row_order, IMAX)
+    row_perm = torch.argsort(torch.where(rows, row_order, imax), dim=-1, stable=True)
+    col_perm = torch.argsort(torch.where(det_free, det_key, imax), dim=-1, stable=True)
+    live = rows[:, :, None] & det_free[:, None, :]
+    clamped = torch.clamp(cost, max=_clamp_value(threshold))
+    cm = torch.where(live, clamped, torch.full_like(clamped, BIG))
+    c2 = torch.gather(cm, 1, row_perm[:, :, None].expand(c, k, k))
+    c2 = torch.gather(c2, 2, col_perm[:, None, :].expand(c, k, k))
+    r2c = solve_uniform_batched(c2, nr, nc)  # permuted row -> permuted col
+
+    a = torch.arange(k, device=dev)
+    paired = (a < nr[:, None]) & (r2c >= 0) & (r2c < nc[:, None])
+    r2c_c = torch.clamp(r2c, 0, k - 1)
+    cost_at = torch.gather(c2, 2, r2c_c[:, :, None])[:, :, 0]
+    accept = paired & (cost_at <= np.float32(threshold))
+    reject = paired & ~accept
+    slot_col = torch.gather(col_perm, 1, r2c_c)
+
+    def put(dst, idx, mask, val):  # dst[c, idx] = val where mask; k is a dump slot
+        ext = torch.cat([dst, dst[:, :1]], 1)
+        ext.scatter_(1, torch.where(mask, idx, k), val.to(dst.dtype))
+        return ext[:, :k]
+
+    track_col = put(track_col, row_perm, accept, slot_col)
+    det_free = put(det_free, slot_col, accept, torch.zeros_like(accept))
+    rank = torch.cumsum(reject.to(torch.int64), -1) - 1
+    det_key = put(det_key, slot_col, reject, stage_base[:, None] * k + rank)
+    return det_free, track_col, det_key
+
+
+def _associate_staged(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
+                      det_valid, det_order, hp: TrackerParams):
+    """Staged association for [C] classes -> (det_free, track_col, det_key).
+
+    Counterpart of the JAX `tracker.py::_associate_xla`: one `_match_stage`
+    per occupied cascade level, each class walking its own levels in
+    ascending order (a class out of levels sits its stage out), then the
+    IoU stage. One host read per frame: the number of cascade stages.
+    """
+    c, k = lvl_of.shape
+    dev = lvl_of.device
+    # per class, its distinct occupied levels in ascending order, IMAX after
+    srt = torch.sort(lvl_of, dim=-1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    first &= srt != IMAX
+    levels = torch.full((c, k + 1), IMAX, dtype=lvl_of.dtype, device=dev)
+    levels.scatter_(1, torch.where(first, torch.cumsum(first.to(torch.int64), -1) - 1, k), srt)
+    n_stages = int(first.sum(-1).max())
+
+    det_free = det_valid.clone()
+    track_col = torch.full((c, k), -1, dtype=torch.int32, device=dev)
+    det_key = det_order.clone()
+    for i in range(n_stages):
+        level = levels[:, i]
+        rows = (lvl_of == level[:, None]) & (level != IMAX)[:, None]
+        det_free, track_col, det_key = _match_stage(
+            gated, rows, det_free, track_col, hp.max_dist,
+            track_id, det_key, 1 + level.to(torch.int64),
+        )
+    iou_rows = tentative | ((lvl_of == 0) & (track_col < 0))
+    return _match_stage(
+        iou_cost, iou_rows, det_free, track_col, hp.max_iou_distance,
+        iou_order, det_key, torch.full((c,), 1 + hp.max_age, dtype=torch.int64, device=dev),
+    )
+
+
+# Counterpart of the JAX `tracker.py::FORCE_PALLAS_CASCADE`. None: auto
+# (kernel K2 whenever its key range allows); False: force the staged route
+# (kernel K4 per stage); True: K2, within the same key-range gate.
+FORCE_CASCADE_KERNEL = None
+
+
+def _use_cascade_kernel(hp: TrackerParams) -> bool:
+    """The JAX `_cascade_kernel_mode` decision: K2 or the staged route."""
+    # demoted det keys reach (max_age + 2) * K, past K2's packed key range
+    if (hp.max_age + 2) * hp.capacity >= KEY_LIMIT:
+        return False
+    return FORCE_CASCADE_KERNEL is not False
+
+
 def _associate(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
                det_valid, det_order, hp: TrackerParams):
     """Cascade + IoU association for [C] classes -> (det_free, track_col, det_key).
 
-    One launch of the association kernel for all classes (its plain
-    version, `ops/cascade.py::associate_plain`, on CPU tensors); a single
-    class goes through the per-class entry, as in the reference.
+    One launch of the association kernel K2 for all classes (a single
+    class goes through the per-class entry, as in the reference), or the
+    staged route (`_associate_staged`). CPU tensors take the plain
+    versions on both routes.
     """
     c, k = lvl_of.shape
+    if k > MAX_K:
+        raise ValueError(f"association takes K <= {MAX_K}, got {k}")
+    if not _use_cascade_kernel(hp):
+        return _associate_staged(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
+                                 det_valid, det_order, hp)
     fn = cascade_match_classparallel if c > 1 else cascade_match_batched
     det_free, det_key, out_row = fn(
         gated, iou_cost, lvl_of, tentative, track_id, iou_order, det_valid, det_order,
