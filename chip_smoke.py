@@ -14,8 +14,11 @@ Phases, each fatal on failure:
   K4        batched assignment kernel vs its plain version, bitwise, on 300
             clamp-tie problems at S=64 (one launch), a [4, 64, 64] batch and
             S=256; alone and inside the batched transpose rule;
-  K5        fused ReID stage-1 block vs its plain version at N=3840 crops
-            (128 frames x 30), bf16 and f32;
+  K5        fused ReID stage-1 block vs its plain version: bf16 at N=128
+            (the embed's launch) and N=3840 (128 frames x 30), with cuDNN's
+            bf16 block timed beside them, batch invariance (bitwise), f32
+            at N=3840; its ptxas registers and shared memory;
+  embed     the ReID embed at the main path's shapes with K5 off and on;
   K6        layer-1 conv (3x3 s2, 32->64, SiLU) vs its plain version at
             [128, 192, 320, 32] bf16 and a small f32 shape;
   pipeline  the CLI main path on a synthetic 256-frame 1280x720 video:
@@ -179,34 +182,142 @@ def check_k4(dev):
 
 def check_k5(dev):
     """bf16 rtol 1.6e-2 / atol 1e-2, f32 atol 1e-4: the tolerances of
-    tests/test_torch_reid_block.py."""
+    tests/test_torch_reid_block.py. bf16 at the embed's launch (N=128, a
+    128-crop chunk) and at a 128-frame batch's crops (N=3840), each beside
+    the plain version and, for information, cuDNN's bf16 block
+    (models/reid.py::_basic_block, what the embed runs with K5 off); f32
+    (parity mode) at N=3840."""
     import torch
 
-    from vehicle_counting_tpu_torch.models.convert import reid_block64_from_jax
+    from vehicle_counting_tpu_torch import _build
+    from vehicle_counting_tpu_torch.models.convert import reid_block64_from_jax, reid_params_from_jax
+    from vehicle_counting_tpu_torch.models.reid import _basic_block, cast_conv_weights
     from vehicle_counting_tpu_torch.ops import reid_block
     from vehicle_counting_tpu_torch.testing import reid_block_params
 
+    fn, ptxas = None, {}
+    for ln in _build.BUILD_LOGS.get("reid_block", "").splitlines():
+        if "Compiling entry function" in ln:
+            fn = "bf16" if "reid_block_bf16" in ln else "f32"
+        elif fn and ("Used" in ln or "spill" in ln or "wgmma" in ln):
+            ptxas.setdefault(fn, []).append(ln.split("ptxas info    :")[-1].strip())
+    smem = _build.load("reid_block").vct_reid_block64_smem
+    for fn in ("bf16", "f32"):
+        print(f"K5 {fn} ptxas: {ptxas.get(fn, '(cached: no report)')}; dynamic smem per block "
+              f"{smem(int(fn == 'bf16'))} B")
     torch.backends.cudnn.allow_tf32 = False  # the plain version's f32 convs
     rng = np.random.default_rng(SEED + 5)
     p, s = reid_block_params(rng)
     ops = reid_block64_from_jax(p, s, dev)
+    wts = (ops["w1"], ops["w2"], ops["a1"], ops["b1"], ops["a2"], ops["b2"])
+    pb, sb = reid_params_from_jax(p, s, dev)
+    pb = cast_conv_weights(pb, torch.bfloat16)
     x32 = torch.from_numpy(np.maximum(rng.standard_normal((3840, 64, 25, 25)), 0).astype(np.float32)).to(dev)
-    res = {}
-    for dt, tol in ((torch.bfloat16, dict(rtol=1.6e-2, atol=1e-2)), (torch.float32, dict(rtol=0, atol=1e-4))):
-        args = (x32.to(dt), ops["w1"], ops["w2"], ops["a1"], ops["b1"], ops["a2"], ops["b2"])
-        got = reid_block.reid_block64(*args).float()
-        want = reid_block.reid_block64_plain(*args).float()
+    bf16_tol, res = dict(rtol=1.6e-2, atol=1e-2), {}
+    for n, reps in ((128, 50), (3840, 5)):
+        x = x32[:n].to(torch.bfloat16)
+        got = reid_block.reid_block64(x, *wts).float()
+        want = reid_block.reid_block64_plain(x, *wts).float()
         err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, **tol)
-        t_plain = cuda_ms(lambda: reid_block.reid_block64_plain(*args), 5)
-        t_k = cuda_ms(lambda: reid_block.reid_block64(*args), 5)
-        t_k2 = cuda_ms(lambda: reid_block.reid_block64(*args), 5)
-        t_plain2 = cuda_ms(lambda: reid_block.reid_block64_plain(*args), 5)
-        name = str(dt).split(".")[-1]
-        print(f"K5 {name} N=3840: max |diff| {err:.3e} ({tol}); kernel {t_k:.4f}/{t_k2:.4f} ms, "
-              f"plain {t_plain:.4f}/{t_plain2:.4f} ms")
-        res[name] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2)}
-    return res
+        torch.testing.assert_close(got, want, **bf16_tol)
+        xf = x.float()  # the embed hands its blocks f32 activations
+        t_plain = cuda_ms(lambda: reid_block.reid_block64_plain(x, *wts), reps)
+        t_k = cuda_ms(lambda: reid_block.reid_block64(x, *wts), reps)
+        t_k2 = cuda_ms(lambda: reid_block.reid_block64(x, *wts), reps)
+        t_plain2 = cuda_ms(lambda: reid_block.reid_block64_plain(x, *wts), reps)
+        t_cudnn = cuda_ms(lambda: _basic_block(pb, sb, xf, 1, torch.bfloat16), reps)
+        dev_k = device_events(lambda: reid_block.reid_block64(x, *wts))
+        dev_k5 = sum(ms for name, ms in dev_k if "reid_block_bf16" in name)
+        dev_plain = sum(ms for _, ms in device_events(lambda: reid_block.reid_block64_plain(x, *wts)))
+        print(f"K5 bfloat16 N={n}: max |diff| {err:.3e} ({bf16_tol}); kernel {t_k:.4f}/{t_k2:.4f} ms, "
+              f"plain {t_plain:.4f}/{t_plain2:.4f} ms; cuDNN bf16 block (information) {t_cudnn:.4f} ms; "
+              f"device time of one call (torch.profiler): K5 {dev_k5:.4f} ms + the wrapper's other ops "
+              f"{sum(ms for _, ms in dev_k) - dev_k5:.4f} ms, plain {dev_plain:.4f} ms")
+        res[n] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), "cudnn_bf16_ms": t_cudnn,
+                  "device_ms": dev_k5, "plain_device_ms": dev_plain}
+    # N=1, and N=133 where some blocks take two crops; no atomics, no state
+    # across crops: a crop's output does not depend on the launch
+    for n in (1, 133):
+        x = x32[:n].to(torch.bfloat16)
+        got = reid_block.reid_block64(x, *wts)
+        torch.testing.assert_close(got.float(), reid_block.reid_block64_plain(x, *wts).float(), **bf16_tol)
+    if not torch.equal(got[:4], reid_block.reid_block64(x[:4].contiguous(), *wts)):
+        raise AssertionError("K5 bf16: the first 4 crops of an N=133 launch differ from an N=4 launch")
+    print("K5 bfloat16 N=1 and N=133 within tolerance; batch-invariant: crops 0-3 of N=133 == N=4, bitwise")
+    args = (x32, *wts)
+    got = reid_block.reid_block64(*args)
+    want = reid_block.reid_block64_plain(*args)
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    t_plain = cuda_ms(lambda: reid_block.reid_block64_plain(*args), 5)
+    t_k = cuda_ms(lambda: reid_block.reid_block64(*args), 5)
+    t_k2 = cuda_ms(lambda: reid_block.reid_block64(*args), 5)
+    t_plain2 = cuda_ms(lambda: reid_block.reid_block64_plain(*args), 5)
+    print(f"K5 float32 N=3840 (parity mode, CUDA cores): max |diff| {err:.3e} (atol 1e-4); "
+          f"kernel {t_k:.4f}/{t_k2:.4f} ms, plain {t_plain:.4f}/{t_plain2:.4f} ms")
+    return {**res[128], "n": 128, "n3840": res[3840],
+            "f32": {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), "n": 3840}}
+
+
+def embed_ab(dev, n_frames=128, per_frame=30):
+    """The ReID embed at the main path's shapes (bf16, chunks of
+    DeepSortParams.max_embed crops, per_frame crops for each of n_frames
+    frames) with K5 off and on, in turns (off, on, on, off), CUDA events;
+    then one profiled pass of each for the card's busy time. Returns the
+    best ms/frame of each."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models import reid
+    from vehicle_counting_tpu_torch.ops import reid_block
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams
+
+    chunk = DeepSortParams._field_defaults["max_embed"]
+    rp, rs = reid.init_reid(torch.Generator().manual_seed(1), device=dev)
+    rp = reid.cast_conv_weights(rp, torch.bfloat16)
+    crops = torch.from_numpy(np.random.default_rng(SEED + 7).standard_normal(
+        (n_frames * per_frame, 50, 50, 3)).astype(np.float32)).to(dev)
+
+    def embed():
+        with torch.no_grad():
+            for i in range(0, crops.shape[0], chunk):
+                reid.reid_forward(rp, rs, crops[i : i + chunk], dtype=torch.bfloat16)
+
+    old, t = reid.FORCE_REID_BLOCK_KERNEL, {False: [], True: []}
+    try:
+        for on in (False, True, True, False) * 2:  # the host's clock wanders: 4 turns each
+            reid.FORCE_REID_BLOCK_KERNEL = on
+            reid_block.reid_block64.launches = 0
+            t[on].append(cuda_ms(embed, 5) / n_frames)
+            if bool(reid_block.reid_block64.launches) != on:
+                raise AssertionError(f"embed A/B: K5 {'on' if on else 'off'}, {reid_block.reid_block64.launches} launches")
+        print(f"embed ms/frame ({n_frames} frames x {per_frame} crops, chunks of {chunk}, bf16): "
+              f"K5 off {[round(v, 4) for v in t[False]]}, K5 on {[round(v, 4) for v in t[True]]}")
+        for on in (False, True):  # how much of that wall time the card is busy
+            reid.FORCE_REID_BLOCK_KERNEL = on
+            ev = device_events(embed)
+            k5 = sum(ms for name, ms in ev if "reid_block_bf16" in name)
+            total = sum(ms for _, ms in ev) / n_frames
+            print(f"embed K5 {'on' if on else 'off'}: device busy {total:.4f} ms/frame "
+                  f"({100 * total / min(t[on]):.1f} % of the best wall time; torch.profiler), "
+                  f"K5 kernel {k5 / n_frames:.4f} ms/frame, {len(ev) / n_frames:.2f} device ops/frame")
+    finally:
+        reid.FORCE_REID_BLOCK_KERNEL = old
+    return {"off": min(t[False]), "on": min(t[True])}
+
+
+def device_events(fn):
+    """(name, ms) of each kernel and copy that one call of fn runs on the
+    card (torch.profiler); a warm-up call first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def check_k6(dev):
@@ -581,6 +692,8 @@ def main() -> int:
     k4 = check_k4(dev)
     phase("K5 fused ReID stage-1 block", card)
     k5 = check_k5(dev)
+    phase("embed A/B: ReID embed with K5 off and on", card)
+    emb = embed_ab(dev)
     phase("K6 layer-1 conv", card)
     k6 = check_k6(dev)
 
@@ -615,12 +728,13 @@ def main() -> int:
              path="switched", **k4),
         dict(name="reid_block64", route="cuda", source="vehicle_counting_tpu_torch/csrc/reid_block.cu",
              replaces="vehicle_counting_tpu/ops/pallas/reid_block.py:139", launches=launches_sw["reid_block"],
-             path="switched", **k5["bfloat16"], f32=k5["float32"]),
+             path="switched", **k5),
         dict(name="conv1_s2_silu", route="cuda", source="vehicle_counting_tpu_torch/csrc/conv_s2.cu",
              replaces="vehicle_counting_tpu/ops/pallas/conv_s2.py:181", launches=launches_k6,
              path="layer-1 stand-alone", **k6["bfloat16"], f32=k6["float32"]),
     ]
     print(f"pipeline frames/s: {fps:.2f} [{card}]")
+    print(f"embed ms/frame, bf16: K5 off {emb['off']:.4f}, K5 on {emb['on']:.4f} [{card}]")
     print(f"tracker ms/frame, f32 B=16: K2 route min {min(scan['k2']):.4f}, staged route min "
           f"{min(scan['staged']):.4f} [{card}]")
     print(json.dumps({"kernels": kernels}))

@@ -28,12 +28,14 @@ def _jax_fold(bp, bs):
     return a, bp["bias"] - bs["mean"] * a
 
 
+@pytest.mark.parametrize("n", [1, 5, 9])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_matches_pallas_interpret(dtype):
-    """N = 5 pads the TPU kernel's last group of G = 4 crops."""
+def test_plain_matches_pallas_interpret(dtype, n):
+    """N = 1, 5 and 9 are ragged against the TPU kernel's groups of G = 4
+    crops (its last group is padded)."""
     rng = np.random.default_rng(30)
     p, s = reid_block_params(rng)
-    x = (rng.standard_normal((5, 25, 25, 64)) * 0.5).astype(np.float32)
+    x = (rng.standard_normal((n, 25, 25, 64)) * 0.5).astype(np.float32)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     want = reid_block64_pallas(
         jnp.asarray(x, jdt), p["conv1"]["w"], p["conv2"]["w"],
@@ -43,7 +45,7 @@ def test_plain_matches_pallas_interpret(dtype):
     ops = reid_block64_from_jax(p, s)
     tx = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(getattr(torch, dtype))
     got = trb.reid_block64(tx, ops["w1"], ops["w2"], ops["a1"], ops["b1"], ops["a2"], ops["b2"])
-    assert got.dtype == tx.dtype and got.shape == (5, 64, 25, 25)
+    assert got.dtype == tx.dtype and got.shape == (n, 64, 25, 25)
     np.testing.assert_allclose(got.float().permute(0, 2, 3, 1).numpy(), np.asarray(want, np.float32),
                                **TOL[dtype])
 
@@ -92,6 +94,22 @@ def test_block_switch(reid_weights, monkeypatch, switch, env, expect):
     assert len(calls) == expect
 
 
+def test_pack_weights_is_a_permutation_of_hwio():
+    """The bf16 kernel's packed slabs hold exactly the HWIO weights: undo
+    the [conv, tap, co, ci] transpose and the chunk swizzle (ci chunk c of
+    row co stored at chunk c ^ (co % 8)) and compare bit for bit."""
+    rng = np.random.default_rng(34)
+    w1, w2 = (torch.from_numpy(rng.standard_normal((3, 3, 64, 64)).astype(np.float32)) for _ in range(2))
+    packed = trb.pack_weights(w1, w2)
+    assert packed.shape == (2, 9, 64, 64) and packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    chunks = packed.reshape(2, 9, 64, 8, 8)
+    co = np.arange(64)[:, None]
+    stored = np.arange(8)[None, :] ^ (co % 8)  # stored chunk of logical chunk c (columns)
+    unswizzled = chunks[:, :, torch.from_numpy(co), torch.from_numpy(stored)]  # [conv, tap, co, c, 8]
+    hwio = unswizzled.reshape(2, 9, 64, 64).transpose(2, 3).reshape(2, 3, 3, 64, 64)
+    assert torch.equal(hwio[0], w1.to(torch.bfloat16)) and torch.equal(hwio[1], w2.to(torch.bfloat16))
+
+
 def test_kernel_rejects_other_shapes():
     w = torch.zeros((3, 3, 64, 64))
     v = torch.zeros(64)
@@ -100,15 +118,21 @@ def test_kernel_rejects_other_shapes():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 128, 133])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(dtype):
+def test_kernel_matches_plain_on_card(dtype, n):
+    """N = 128 is the embed's launch; N = 133 leaves some SMs two crops.
+    The first 4 crops of that launch equal a launch of those 4 alone, bit
+    for bit: the kernel has no atomics and no state across crops."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the block kernel is CUDA C++ with no CPU mode")
     torch.backends.cudnn.allow_tf32 = False  # the plain version's f32 convs
     rng = np.random.default_rng(33)
     p, s = reid_block_params(rng)
     ops = {k: v.cuda() for k, v in reid_block64_from_jax(p, s).items()}
-    x = torch.from_numpy(rng.standard_normal((37, 64, 25, 25)).astype(np.float32)).to(getattr(torch, dtype)).cuda()
-    args = (x, ops["w1"], ops["w2"], ops["a1"], ops["b1"], ops["a2"], ops["b2"])
-    got = trb.reid_block64(*args)
-    torch.testing.assert_close(got.float(), trb.reid_block64_plain(*args).float(), **TOL[dtype])
+    x = torch.from_numpy(rng.standard_normal((n, 64, 25, 25)).astype(np.float32)).to(getattr(torch, dtype)).cuda()
+    wts = (ops["w1"], ops["w2"], ops["a1"], ops["b1"], ops["a2"], ops["b2"])
+    got = trb.reid_block64(x, *wts)
+    torch.testing.assert_close(got.float(), trb.reid_block64_plain(x, *wts).float(), **TOL[dtype])
+    if n > 4:
+        assert torch.equal(got[:4], trb.reid_block64(x[:4].contiguous(), *wts))

@@ -12,11 +12,14 @@ accumulation, h1 rounded to the compute dtype (the pad acts as zeros),
 y = h2 * a2 + b2 + x in f32, relu, output in x.dtype. Activations are
 NCHW [N, 64, 25, 25], the port's ReID layout; weights HWIO [3, 3, 64, 64]
 (`hwio` from the port's OIHW, `models/convert.py` from the JAX pytree).
+The bf16 kernel runs on the tensor cores and takes its weights packed per
+call by `pack_weights`; the f32 kernel (a parity mode) takes HWIO.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +41,28 @@ def fold_bn(scale, bias, mean, var, eps: float):
 def hwio(w_oihw: torch.Tensor) -> torch.Tensor:
     """OIHW conv weights -> the kernel's HWIO [kh, kw, cin, cout], contiguous."""
     return w_oihw.permute(2, 3, 1, 0).contiguous()
+
+
+_PACK_INDEX: Dict[torch.device, torch.Tensor] = {}
+
+
+def _pack_index(device: torch.device) -> torch.Tensor:
+    """For each element of the packed layout, its flat index in
+    torch.stack([w1, w2]) of HWIO weights; built once per device."""
+    idx = _PACK_INDEX.get(device)
+    if idx is None:
+        conv, tap, co, chunk, e = torch.meshgrid(*(torch.arange(n) for n in (2, 9, C, C // 8, 8)), indexing="ij")
+        ci = (chunk ^ (co % 8)) * 8 + e
+        idx = _PACK_INDEX[device] = (((conv * 9 + tap) * C + ci) * C + co).reshape(-1).to(device)
+    return idx
+
+
+def pack_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """HWIO [3, 3, 64, 64] x 2 -> the bf16 kernel's [2 convs, 9 taps, 64 co,
+    64 ci] bf16: one K-major slab per tap, each 128-byte row (one co) in the
+    tensor cores' 128-byte swizzle, i.e. the 8 ci of chunk c at chunk
+    c ^ (co % 8)."""
+    return torch.stack([w1, w2]).reshape(-1)[_pack_index(w1.device)].to(torch.bfloat16).view(2, 9, C, C)
 
 
 def _conv(v: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
@@ -68,10 +93,15 @@ def _launch(x, w1, w2, a1, b1, a2, b2):
         raise ValueError(f"a1, b1, a2, b2 must be [{C}] on {x.device}")
     bf16 = x.dtype == torch.bfloat16
     x = x.contiguous()
-    w1 = w1.to(x.dtype).contiguous()
-    w2 = w2.to(x.dtype).contiguous()
-    # f32 tiles do not both fit in shared memory: x is read zero-padded from global
-    xpad = None if bf16 else F.pad(x, (1, 1, 1, 1))
+    if bf16:
+        w1, w2 = pack_weights(w1, w2)
+        xpad = None
+        if x.data_ptr() % 16:  # the kernel bulk-copies crops: 16-byte aligned
+            x = x.clone()
+    else:
+        w1, w2 = w1.float().contiguous(), w2.float().contiguous()
+        # the f32 tiles do not both fit in shared memory: x is read zero-padded from global
+        xpad = F.pad(x, (1, 1, 1, 1))
     out = torch.empty_like(x)
     fn = _build.load("reid_block").vct_reid_block64
     fn.restype = ctypes.c_int
