@@ -2,13 +2,15 @@
 """GPU smoke test of the PyTorch port (vehicle_counting_tpu_torch).
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
+    python3 chip_smoke.py --cli-ab   # only the CLI's frames/s, repeated (see cli_ab)
 
 Phases, each fatal on failure:
   build     compile the hand-written kernels (csrc/*.cu) with nvcc, one
             process per source, all at once;
   K1        crop gather kernel vs its plain version on the card, array-equal,
-            at the main path's shapes (B=128 planar 384x640 u8 frames,
-            128 crops incl. edge and clamp boxes);
+            at the driven paths' shapes (B=128 planar 384x640 u8 frames):
+            128 crops incl. edge and clamp boxes (the step's embed chunk)
+            and stage_bench's single call over 3840 crops;
   K2        association kernel (and its per-class entry K3) vs the plain
             version, bitwise, at C=4, K=64, max_age=30 (random, tie, empty);
   K4        batched assignment kernel vs its plain version, bitwise, on 300
@@ -20,7 +22,12 @@ Phases, each fatal on failure:
             at N=3840; its ptxas registers and shared memory;
   embed     the ReID embed at the main path's shapes with K5 off and on;
   K6        layer-1 conv (3x3 s2, 32->64, SiLU) vs its plain version at
-            [128, 192, 320, 32] bf16 and a small f32 shape;
+            [128, 192, 320, 32] bf16 and a small f32 shape, with the library
+            call (F.conv2d bf16 channels-last + F.silu) timed beside it;
+  K7        the launch-cost probe kernel vs its plain version, array-equal,
+            then the probe itself: us per launch eager and in a captured
+            CUDA graph, for the kernel and the torch equivalent, and the
+            bare ctypes launch;
   pipeline  the CLI main path on a synthetic 256-frame 1280x720 video:
             yolov5s random init, default config (detect_batch 128, bf16),
             a calibrated min_conf and a 4-class mapping; asserts the CSV and
@@ -34,16 +41,26 @@ Phases, each fatal on failure:
   parity    one f32 step on the card vs the same step on the CPU (plain
             versions): detections and track ids equal; then the same step
             on the card through the staged route (K4) vs the K2 route:
-            track ids, mask and boxes equal.
+            track ids, mask and boxes equal;
+  stage     stage_bench at B=128 (reid bf16, chunks of 128), every stage;
+  bench     bench with a short budget; its metric line is parsed;
+  profile   the CLI with --profile on 128 frames, then profile_summary on
+            the trace it wrote;
+  weights   the CLI with --weight and a ReID checkpoint, both made from
+            seeds (an ultralytics-named .pt state dict and a .t7).
+Each kernel's bound (the least time the card could take: bytes over
+3.35 TB/s or operations over the peak rate of their type, whichever is
+larger) is computed from the checked call's inputs.
 Prints the card, a kernel JSON line, and last {"ok": true, "device": ...}.
 Exits non-zero without printing a result when there is no CUDA device or
 the package is missing.
 """
 
 import collections
+import contextlib
+import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -55,13 +72,21 @@ SRC_HW = (720, 1280)
 N_FRAMES = 256
 N_SWITCHED = 128
 VARIANT = "yolov5s"
-KERNELS = ("crops", "cascade", "assignment", "reid_block", "conv_s2")
+KERNELS = ("crops", "cascade", "assignment", "reid_block", "conv_s2", "noop")
+
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core and f32 CUDA-core FLOP/s
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "unknown"
+def bound(nbytes, ops, ops_rate):
+    """{"bound_ms", "bound_by"}: the larger of bytes over the memory rate
+    and operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / ops_rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def phase(name, card):
@@ -84,9 +109,16 @@ def cuda_ms(fn, n):
 
 
 def check_k1(dev):
+    """K1 against its plain version, array-equal, at both shapes the driven
+    paths give it: 128 crops (a chunk of the step's embed; edge and clamp
+    boxes, 10 % invalid) and stage_bench's one call over 3840 crops (128
+    frames x 30 seed-3 boxes in network-input pixels). Returns the
+    128-crop numbers with the 3840-crop ones under "d3840"."""
     import torch
 
+    from vehicle_counting_tpu_torch.benchmarks.load import crop_gather_inputs, synthetic_boxes
     from vehicle_counting_tpu_torch.ops import crops
+    from vehicle_counting_tpu_torch.ops.letterbox import letterbox_params
     from vehicle_counting_tpu_torch.testing import crop_boxes
 
     rng = np.random.default_rng(SEED)
@@ -95,20 +127,34 @@ def check_k1(dev):
     boxes = torch.from_numpy(crop_boxes(rng, d, h, w)).to(dev)
     fidx = torch.from_numpy(rng.integers(0, b, d).astype(np.int32)).to(dev)
     valid = torch.from_numpy(rng.random(d) < 0.9).to(dev)
-    args = (frames, fidx, boxes, valid)
-    got = crops.gather_crops_batch(*args)
-    torch.cuda.synchronize()
-    want = crops.gather_crops_batch_plain(*args)
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"K1 kernel differs from its plain version: max |diff| {err}")
-    # plain, kernel, kernel, plain
-    t_plain = cuda_ms(lambda: crops.gather_crops_batch_plain(*args), 20)
-    t_k = cuda_ms(lambda: crops.gather_crops_batch(*args), 50)
-    t_k2 = cuda_ms(lambda: crops.gather_crops_batch(*args), 50)
-    t_plain2 = cuda_ms(lambda: crops.gather_crops_batch_plain(*args), 20)
-    print(f"K1 array-equal over {d} crops; kernel {t_k:.4f}/{t_k2:.4f} ms, plain {t_plain:.4f}/{t_plain2:.4f} ms")
-    return {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2)}
+    gain, pad_x, pad_y, _, _ = letterbox_params(SRC_HW, (h, w))
+    churn = torch.from_numpy(synthetic_boxes(3, b, 300, SRC_HW).astype(np.float32)).to(dev)
+    fidx_s, boxes_s, valid_s = crop_gather_inputs(churn, 30, gain, pad_x, pad_y)
+    res = {}
+    for args, reps in (((frames, fidx, boxes, valid), 50), ((frames, fidx_s, boxes_s, valid_s), 10)):
+        _, fi, bx, ok = args
+        n = bx.shape[0]
+        got = crops.gather_crops_batch(*args)
+        torch.cuda.synchronize()
+        want = crops.gather_crops_batch_plain(*args)
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 kernel differs from its plain version on {n} crops: max |diff| {err}")
+        # plain, kernel, kernel, plain
+        t_plain = cuda_ms(lambda: crops.gather_crops_batch_plain(*args), max(reps // 2, 5))
+        t_k = cuda_ms(lambda: crops.gather_crops_batch(*args), reps)
+        t_k2 = cuda_ms(lambda: crops.gather_crops_batch(*args), reps)
+        t_plain2 = cuda_ms(lambda: crops.gather_crops_batch_plain(*args), max(reps // 2, 5))
+        # bytes this call's crops need: each valid crop's source pixels (u8, 3
+        # planes) once, the boxes, indices and mask, and the f32 output; the
+        # bilinear mix is 8 taps * 2 flops per output value
+        x1, y1, x2, y2 = (v[ok].long() for v in crops.crop_boxes_to_bounds(bx, h, w))
+        src = int((3 * torch.clamp(x2 - x1 + 1, min=1) * torch.clamp(y2 - y1 + 1, min=1)).sum())
+        bd = bound(src + nbytes(bx, fi, ok, got), 16 * got.numel(), F32_FLOPS)
+        print(f"K1 array-equal over {n} crops; kernel {t_k:.4f}/{t_k2:.4f} ms, plain {t_plain:.4f}/{t_plain2:.4f} ms; "
+              f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+        res[n] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), **bd, "library_ms": None}
+    return {**res[d], "d3840": res[3840]}
 
 
 def check_k2(dev):
@@ -141,9 +187,14 @@ def check_k2(dev):
     pr = association_problem(np.random.default_rng(SEED + 2), 4, 64, 30, "random")
     gpu = [torch.from_numpy(pr[n]).to(dev) for n in names]
     t_k = cuda_ms(lambda: cascade.cascade_match_classparallel(*gpu, 0.2, 0.6, max_age=30), 50)
+    # the timed problem: every operand once, three [C, K] outputs; each
+    # valid detection's row insertion scans at most K columns K times
+    outs = cascade.cascade_match_classparallel(*gpu, 0.2, 0.6, max_age=30)
+    bd = bound(nbytes(*gpu, *outs), 2 * int(gpu[6].sum()) * 64 * 64, F32_FLOPS)
     print(f"K2/K3 bitwise-equal on {n_cases} [4, 64] problems; kernel {t_k:.4f} ms, "
-          f"plain (host CPU) median {np.median(t_plain):.2f} ms")
-    return {"max_abs_err": float(err), "ms": t_k, "plain_ms": float(np.median(t_plain))}
+          f"plain (host CPU) median {np.median(t_plain):.2f} ms; bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}): "
+          f"a dependent chain inside one launch, so the launch floor (K7) is its real bound")
+    return {"max_abs_err": float(err), "ms": t_k, "plain_ms": float(np.median(t_plain)), **bd, "library_ms": None}
 
 
 def check_k4(dev):
@@ -175,9 +226,11 @@ def check_k4(dev):
         t0 = time.perf_counter()
         assignment.insert_rows_plain(costs, nr)
         t_plain.append((time.perf_counter() - t0) * 1e3)
+    bd = bound(nbytes(*gpu, assignment.insert_rows_batched(*gpu)), 2 * int(nr.sum()) * 64 * 64, F32_FLOPS)
     print(f"K4 bitwise-equal on {n_ok} problems (insert and transpose rule); [4, 64, 64] kernel {t_k:.4f} ms, "
-          f"plain (host CPU) median {np.median(t_plain):.2f} ms")
-    return {"max_abs_err": float(err), "ms": t_k, "plain_ms": float(np.median(t_plain))}
+          f"plain (host CPU) median {np.median(t_plain):.2f} ms; bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}): "
+          f"a dependent chain inside one launch, so the launch floor (K7) is its real bound")
+    return {"max_abs_err": float(err), "ms": t_k, "plain_ms": float(np.median(t_plain)), **bd, "library_ms": None}
 
 
 def check_k5(dev):
@@ -233,8 +286,12 @@ def check_k5(dev):
               f"plain {t_plain:.4f}/{t_plain2:.4f} ms; cuDNN bf16 block (information) {t_cudnn:.4f} ms; "
               f"device time of one call (torch.profiler): K5 {dev_k5:.4f} ms + the wrapper's other ops "
               f"{sum(ms for _, ms in dev_k) - dev_k5:.4f} ms, plain {dev_plain:.4f} ms")
+        # two 3x3 64->64 convs on 25x25: 2 * 625 * 64 * 64 * 9 MACs per crop; x and out once, weights and BN once
+        bd = bound(2 * nbytes(x) + nbytes(*wts), 2 * 2 * 625 * 64 * 64 * 9 * n, BF16_FLOPS)
+        print(f"K5 bfloat16 N={n}: bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), device time is "
+              f"{100 * bd['bound_ms'] / dev_k5:.1f} % of it")
         res[n] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), "cudnn_bf16_ms": t_cudnn,
-                  "device_ms": dev_k5, "plain_device_ms": dev_plain}
+                  "device_ms": dev_k5, "plain_device_ms": dev_plain, **bd, "library_ms": t_cudnn}
     # N=1, and N=133 where some blocks take two crops; no atomics, no state
     # across crops: a crop's output does not depend on the launch
     for n in (1, 133):
@@ -307,23 +364,27 @@ def embed_ab(dev, n_frames=128, per_frame=30):
 
 def device_events(fn):
     """(name, ms) of each kernel and copy that one call of fn runs on the
-    card (torch.profiler); a warm-up call first."""
+    card: a warm-up call, then one call under utils/profiling.trace, read
+    back from the trace file by tools/profile_summary."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from vehicle_counting_tpu_torch.tools.profile_summary import load_device_events
+    from vehicle_counting_tpu_torch.utils.profiling import trace
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as t:
+            fn()
+            torch.cuda.synchronize()
+        return [(e.name, e.dur_us / 1e3) for e in load_device_events(t["path"])]
 
 
 def check_k6(dev):
     """bf16 rtol 1.6e-2 / atol 1e-2, f32 1e-5: the tolerances of
     tests/test_torch_conv_s2.py."""
     import torch
+    import torch.nn.functional as F
 
     from vehicle_counting_tpu_torch.models.convert import conv1_s2_from_jax
     from vehicle_counting_tpu_torch.ops import conv_s2
@@ -347,10 +408,64 @@ def check_k6(dev):
         t_k2 = cuda_ms(lambda: conv_s2.conv1_s2_silu(xt, w, b), n)
         t_plain2 = cuda_ms(lambda: conv_s2.conv1_s2_silu_plain(xt, w, b), n)
         name = str(dt).split(".")[-1]
+        # the library's way to the same function: cuDNN's conv in the
+        # compute dtype, channels-last (the NHWC input as an NCHW view), and
+        # SiLU. Timed here, used nowhere in the package.
+        x_cl, w_cl = xt.permute(0, 3, 1, 2), w.to(dt).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b_dt = b.to(dt)
+
+        def library():
+            return F.silu(F.conv2d(x_cl, w_cl, b_dt, stride=2, padding=1))
+
+        lib_err = float((library().permute(0, 2, 3, 1).float() - want).abs().max())
+        t_lib = min(cuda_ms(library, n), cuda_ms(library, n))
+        # x and out once, weights and bias once; 2 * 9 * 32 * 64 flops per output pixel
+        bd = bound(nbytes(xt, got.to(dt), w.to(dt), b), 2 * 9 * 32 * got.numel(), BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
         print(f"K6 {name} {list(shape)}: max |diff| {err:.3e} ({tol}); kernel {t_k:.4f}/{t_k2:.4f} ms, "
-              f"plain {t_plain:.4f}/{t_plain2:.4f} ms")
-        res[name] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2)}
+              f"plain {t_plain:.4f}/{t_plain2:.4f} ms, library (F.conv2d {name} channels-last + F.silu) {t_lib:.4f} ms "
+              f"(max |diff| vs plain {lib_err:.3e}); bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        res[name] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), **bd, "library_ms": t_lib}
     return res
+
+
+def check_k7(dev):
+    """K7 against its plain version, array-equal, on the probe's [64, 128]
+    f32 block and on a ragged size; then the launch-cost probe. The K7
+    launches of the probe are its main path's: counted from 0."""
+    import torch
+
+    from vehicle_counting_tpu_torch.benchmarks.micro import noop_launch
+    from vehicle_counting_tpu_torch.ops import noop
+
+    rng = np.random.default_rng(SEED + 8)
+    for shape in ((64, 128), (3, 1000, 77)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        got = noop.noop_add1(x)
+        torch.cuda.synchronize()
+        want = noop.noop_add1_plain(x)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K7 kernel differs from its plain version on {shape}: "
+                                 f"max |diff| {float((got - want).abs().max())}")
+    x = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)).to(dev)
+    err = float((noop.noop_add1(x) - noop.noop_add1_plain(x)).abs().max())
+    t_plain = cuda_ms(lambda: noop.noop_add1_plain(x), 200)
+    t_k = cuda_ms(lambda: noop.noop_add1(x), 200)
+    t_k2 = cuda_ms(lambda: noop.noop_add1(x), 200)
+    t_plain2 = cuda_ms(lambda: noop.noop_add1_plain(x), 200)
+    bd = bound(2 * nbytes(x), x.numel(), F32_FLOPS)
+    print(f"K7 array-equal on [64, 128] and [3, 1000, 77] f32; wrapper {t_k:.5f}/{t_k2:.5f} ms, "
+          f"plain (torch add, also the library call) {t_plain:.5f}/{t_plain2:.5f} ms; bound {bd['bound_ms']:.6f} ms "
+          f"({bd['bound_by']}): the launch is the cost")
+    noop.noop_add1.launches = 0
+    probe = noop_launch.main(dev)
+    launches = noop.noop_add1.launches
+    if launches <= 0:
+        raise AssertionError("the launch-cost probe never launched the K7 kernel")
+    for key in ("cuda_noop_eager_us", "cuda_noop_graph_us", "torch_equiv_eager_us", "torch_equiv_graph_us", "bare_launch_us"):
+        if not (probe[key] and np.isfinite(probe[key]) and probe[key] > 0):
+            raise AssertionError(f"launch-cost probe: {key} = {probe[key]}")
+    return {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), **bd,
+            "library_ms": min(t_plain, t_plain2), "launches": launches, "probe": probe}
 
 
 def write_video(tmp, n_frames=N_FRAMES, name="cam_smoke"):
@@ -406,6 +521,7 @@ def calibrate(dev, path):
     so frame 0 keeps ~30 of their detections."""
     import torch
 
+    from vehicle_counting_tpu_torch.benchmarks.load import calibrate_from_det
     from vehicle_counting_tpu_torch.models.reid import cast_conv_weights, init_reid
     from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params, init_yolov5
     from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, host_letterbox_yuv420
@@ -424,44 +540,60 @@ def calibrate(dev, path):
             yp, cast_conv_weights(rp, torch.bfloat16), rs, yuv, torch.ones(8, dtype=torch.bool, device=dev),
             torch.arange(80, dtype=torch.int32, device=dev), ycfg=cfg, hp=hp, image_size=net, src_hw=SRC_HW,
             conf_thres=0.0, iou_thres=0.45, max_det=300, dtype=torch.bfloat16)
-    scores, classes, ok = (det[k][0].cpu().numpy() for k in ("scores", "classes", "valid"))
-    top4 = [c for c, _ in collections.Counter(classes[ok].tolist()).most_common(4)]
-    pool = np.sort(scores[ok & np.isin(classes, top4)])
-    conf = float(pool[-min(30, pool.size)])
+    conf, _, top4 = calibrate_from_det(det, 30)
     return conf, {int(c): i for i, c in enumerate(top4)}
 
 
-def run_pipeline(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES, out="out"):
-    """The CLI main path; returns (frames/s, the kernel counts of that run,
-    the CSV's rows)."""
-    import torch
-
-    from vehicle_counting_tpu_torch import run
+def kernel_counters():
+    """{kernel: [wrappers that launch it]} of the step's kernels."""
     from vehicle_counting_tpu_torch.ops import assignment, cascade, crops, reid_block
 
-    out_dir = os.path.join(tmp, out)
-    args = run.parser.parse_args([
-        "--input_path", path, "--output_path", out_dir, "--device", str(dev),
-        "--mapping", json.dumps(mapping),
-    ])
-    config, cam_config = run.load_configs(args)  # the packaged defaults
-    config.min_conf = conf
-    cam_config.zone_path = zones
-    counters = {
+    return {
         "crops": [crops.gather_crops_batch],
         "cascade": [cascade.cascade_match_classparallel, cascade.cascade_match_batched],
         "assignment": [assignment.insert_rows_batched],
         "reid_block": [reid_block.reid_block64],
     }
+
+
+def zero_counts(counters):
     for fns in counters.values():
         for fn in fns:
             fn.launches = 0
+
+
+def read_counts(counters):
+    return {name: sum(fn.launches for fn in fns) for name, fns in counters.items()}
+
+
+def run_pipeline(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES, out="out", extra_args=(),
+                 reid_checkpoint=None):
+    """The CLI main path; returns (frames/s, the kernel counts of that run,
+    the CSV's rows). `mapping` None leaves the CLI's default class map,
+    `conf` None the packaged min_conf."""
+    import torch
+
+    from vehicle_counting_tpu_torch import run
+
+    out_dir = os.path.join(tmp, out)
+    args = run.parser.parse_args([
+        "--input_path", path, "--output_path", out_dir, "--device", str(dev),
+        *(("--mapping", json.dumps(mapping)) if mapping is not None else ()), *extra_args,
+    ])
+    config, cam_config = run.load_configs(args)  # the packaged defaults
+    if conf is not None:
+        config.min_conf = conf
+    cam_config.zone_path = zones
+    if reid_checkpoint:
+        cam_config.checkpoint = reid_checkpoint
+    counters = kernel_counters()
+    zero_counts(counters)
     t0 = time.perf_counter()
     results = run.main(args, config, cam_config)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: sum(fn.launches for fn in fns) for name, fns in counters.items()}
+    launches = read_counts(counters)
     (res,) = results
     if not res.get("csv"):
         raise AssertionError(f"pipeline failed: {res.get('error')}")
@@ -469,7 +601,7 @@ def run_pipeline(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES, out="o
 
     df = pd.read_csv(res["csv"])
     mp4 = os.path.join(out_dir, os.path.basename(path))
-    if not (os.path.getsize(res["csv"]) > 0 and os.path.getsize(mp4) > 0):
+    if not (os.path.getsize(res["csv"]) > 0 and (args.no_visualize or os.path.getsize(mp4) > 0)):
         raise AssertionError("pipeline wrote no CSV/MP4")
     if res["frames"] != n_frames:
         raise AssertionError(f"pipeline processed {res['frames']} of {n_frames} frames")
@@ -479,13 +611,12 @@ def run_pipeline(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES, out="o
     return res["fps"], launches, df
 
 
-def run_switched(dev, tmp, conf, mapping):
+def run_switched(dev, tmp, path, zones, conf, mapping):
     """The CLI on the first N_SWITCHED frames with the fused ReID block on
     (the environment switch both packages read) and the staged association
     forced. Returns (launches, CSV rows)."""
     from vehicle_counting_tpu_torch.tracking import tracker
 
-    path, zones = write_video(tmp, N_SWITCHED, "cam_switched")
     old_env, old_force = os.environ.get("FORCE_PALLAS_REID_BLOCK"), tracker.FORCE_CASCADE_KERNEL
     os.environ["FORCE_PALLAS_REID_BLOCK"] = "1"
     tracker.FORCE_CASCADE_KERNEL = False
@@ -658,7 +789,172 @@ def check_parity(dev, path):
     return t
 
 
+def run_stage_bench(dev):
+    """stage_bench at the main path's shapes (B=128, reid bf16, chunks of
+    128 crops), every stage, few reps; K1 and K2 must have launched."""
+    from vehicle_counting_tpu_torch import stage_bench
+
+    counters = kernel_counters()
+    zero_counts(counters)
+    res = stage_bench.main(["--device", str(dev), "--batch", "128", "--reps", "3", "--chain", "1", "--stages", "all",
+                            "--reid_dtype", "bfloat16", "--max_embed", "128"])
+    launches = read_counts(counters)
+    missing = [st for st in stage_bench.STAGES if st not in res]
+    if missing or not all(np.isfinite(v).all() and min(v) > 0 for v in res.values()):
+        raise AssertionError(f"stage_bench: missing {missing} or a non-positive time in {res}")
+    for name in ("crops", "cascade"):
+        if launches[name] <= 0:
+            raise AssertionError(f"stage_bench never launched the {name} kernel")
+    print(f"stage_bench launches {launches}")
+    return res, launches
+
+
+def run_bench(dev):
+    """bench with a short budget; parses its last two lines. K1 and K2
+    must have launched."""
+    from vehicle_counting_tpu_torch import bench
+
+    env = {"BENCH_BUDGET_S": "20", "BENCH_WINDOWS": "6", "BENCH_PATIENCE": "4", "BENCH_STREAM_SWEEP": "4,1,8"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    counters = kernel_counters()
+    zero_counts(counters)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            bench.main(["--device", str(dev)])
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+    launches = read_counts(counters)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    print("\n".join(lines))
+    telemetry, metric = json.loads(lines[-2])["telemetry"], json.loads(lines[-1])
+    if set(metric) != {"metric", "value", "unit", "vs_baseline"} or not metric["value"] > 0:
+        raise AssertionError(f"bench: malformed metric line {metric}")
+    if metric["unit"] != "frames/sec" or metric["vs_baseline"] is not None:
+        raise AssertionError(f"bench: unit/vs_baseline {metric}")
+    if not (telemetry["device_resident_fps"] > 0 and telemetry["upload_gbps_best"] > 0):
+        raise AssertionError(f"bench: telemetry {telemetry}")
+    for name in ("crops", "cascade"):
+        if launches[name] <= 0:
+            raise AssertionError(f"bench never launched the {name} kernel")
+    print(f"bench launches {launches}")
+    return telemetry, metric, launches
+
+
+def run_profile(dev, tmp, path, zones, conf, mapping):
+    """The CLI with --profile on N_SWITCHED frames, then profile_summary on
+    the trace it wrote. Returns the summary's numbers."""
+    from vehicle_counting_tpu_torch.tools import profile_summary
+
+    trace_dir = os.path.join(tmp, "trace")
+    fps, launches, _ = run_pipeline(dev, tmp, path, zones, conf, mapping, N_SWITCHED, "out_profile",
+                                    extra_args=("--profile", trace_dir, "--check_numerics", "--no_visualize"))
+    trace_path = profile_summary.find_trace(trace_dir)
+    print(f"trace {os.path.getsize(trace_path) / 1e6:.1f} MB")
+    if profile_summary.main([trace_dir, "-n", "12", "--frames", str(N_SWITCHED)]) != 0:
+        raise AssertionError("profile_summary failed")
+    summ = profile_summary.summarize(profile_summary.load_device_events(trace_path), frames=N_SWITCHED)
+    own = summ["by_category"].get("vct kernels (csrc/)", 0.0)
+    if summ["device_kernels"] <= 0 or own <= 0:
+        raise AssertionError(f"--profile: the trace shows no device kernels / none of csrc/: {summ['by_category']}")
+    return {"fps_profiled": fps, "kernels_per_frame": summ["kernels_per_frame"], "busy_share": summ["busy_share"],
+            "window_ms": summ["window_us"] / 1e3, "by_category_us": summ["by_category"], "launches": launches}
+
+
+def run_weights(dev, tmp, path, zones):
+    """The CLI with --weight and a ReID checkpoint made from seeds: a
+    yolov5s state dict with ultralytics' names (.pt) and a net_dict (.t7).
+    The loaded trees must be what a fold of the same arrays on the host
+    gives, and the run must write its CSV."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models import convert
+    from vehicle_counting_tpu_torch.models.reid import load_reid_weights
+    from vehicle_counting_tpu_torch.testing import fake_reid_state_dict, fake_yolov5_state_dict
+
+    rng = np.random.default_rng(SEED + 9)
+    sd = fake_yolov5_state_dict(rng, VARIANT, 80)
+    pt, t7 = os.path.join(tmp, "yolov5s_seeded.pt"), os.path.join(tmp, "ckpt_seeded.t7")
+    torch.save({"model": {k: torch.from_numpy(v).half() for k, v in sd.items()}, "epoch": -1}, pt)
+    rsd = fake_reid_state_dict(rng)
+    torch.save({"net_dict": {k: torch.from_numpy(v) for k, v in rsd.items()}, "acc": 0.5, "epoch": 3}, t7)
+    tree = convert.load_yolov5_weights(pt, dev)
+    half = {k: v.astype(np.float16).astype(np.float32) for k, v in sd.items()}
+    w, b = convert.fuse_conv_bn(*(half[f"model.1.{n}"] for n in (
+        "conv.weight", "bn.weight", "bn.bias", "bn.running_mean", "bn.running_var")))
+    if not (np.array_equal(tree["1"]["w"].cpu().numpy(), w) and np.array_equal(tree["1"]["b"].cpu().numpy(), b)):
+        raise AssertionError("--weight: layer 1 of the loaded tree is not the BN fold of the checkpoint's arrays")
+    rp, rs = load_reid_weights(t7, dev)
+    if not (np.array_equal(rp["layer1_0"]["conv1"]["w"].cpu().numpy(), rsd["layer1.0.conv1.weight"])
+            and np.array_equal(rs["stem"]["var"].cpu().numpy(), rsd["conv.1.running_var"])):
+        raise AssertionError("ReID checkpoint: the loaded tree differs from the checkpoint's arrays")
+    # seeded weights score low everywhere: a low threshold gives the tracker work
+    fps, launches, df = run_pipeline(dev, tmp, path, zones, 0.001, None, N_SWITCHED, "out_weights",
+                                     extra_args=("--weight", pt, "--no_visualize", "--check_numerics"),
+                                     reid_checkpoint=t7)
+    for name in ("crops", "cascade"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the --weight run never launched the {name} kernel")
+    return {"fps": fps, "rows": len(df), "launches": launches}
+
+
+def cli_ab(argv) -> int:
+    """`python3 chip_smoke.py --cli-ab [--root DIR] [--repeat 3] [--frames 256]`:
+    frames/s of the default CLI run alone, for comparing two checkouts on
+    one card. It drives the "pipeline" phase of the checkout at DIR (a
+    directory under this one that holds an older `chip_smoke.py` and
+    package, e.g. `git archive` of the parent unpacked under build/;
+    default: this checkout) with that checkout's own write_video /
+    calibrate / run_pipeline, once to warm up (kernel build, cuDNN plans)
+    and then --repeat times, and prints one JSON line. Run it once per
+    checkout and turn (parent, change, change, parent), each a process of
+    its own, all in one job on the card: the host's clock differs too much
+    between jobs to compare across them."""
+    import argparse
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap = argparse.ArgumentParser(description="frames/s of the default CLI run of a checkout")
+    ap.add_argument("--cli-ab", action="store_true")
+    ap.add_argument("--root", default=here)
+    ap.add_argument("--repeat", type=int, default=3)
+    ap.add_argument("--frames", type=int, default=N_FRAMES)
+    args = ap.parse_args(argv)
+    root = os.path.realpath(args.root)
+    if os.path.commonpath([root, here]) != here:
+        ap.error(f"--root must lie inside {here}")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --cli-ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)  # that checkout's package, before any import of it
+    spec = importlib.util.spec_from_file_location("chip_smoke_of_root", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    dev = torch.device("cuda", 0)
+    fps, launches = [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        path, zones = cs.write_video(tmp, args.frames)
+        conf, mapping = cs.calibrate(dev, path)
+        for i in range(args.repeat + 1):
+            got, launches, _ = cs.run_pipeline(dev, tmp, path, zones, conf, mapping, args.frames, f"out{i}")
+            if i:
+                fps.append(got)
+    card_line = getattr(cs, "card_line", None)  # an older checkout keeps it in its chip_smoke.py
+    if card_line is None:
+        from vehicle_counting_tpu_torch.utils.device import card_line
+
+    print(json.dumps({"cli_ab": {"root": root, "frames": args.frames, "fps": fps, "launches": launches,
+                                 "card": card_line()}}))
+    return 0
+
+
 def main() -> int:
+    if "--cli-ab" in sys.argv[1:]:
+        return cli_ab(sys.argv[1:])
     try:
         import torch
     except ImportError as e:
@@ -668,13 +964,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke test runs only on the card", file=sys.stderr)
         return 2
     try:
-        from vehicle_counting_tpu_torch import _build  # noqa: F401
+        from vehicle_counting_tpu_torch import _build
+        from vehicle_counting_tpu_torch.utils.device import card_line, get_devices_info
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable from {os.getcwd()}: {e}", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    print(get_devices_info())
+    t_start = time.perf_counter()
 
     phase("build", card)
     t0 = time.perf_counter()
@@ -684,6 +983,8 @@ def main() -> int:
         print(f"built {name}: {[ln.strip() for ln in log if 'registers' in ln or 'spill' in ln][-4:]}")
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
+    phase("K7 launch-cost probe kernel", card)
+    k7 = check_k7(dev)
     phase("K1 crop gather", card)
     k1 = check_k1(dev)
     phase("K2/K3 association", card)
@@ -699,6 +1000,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         path, zones = write_video(tmp)
+        path_sw, zones_sw = write_video(tmp, N_SWITCHED, "cam_switched")
         phase("calibration", card)
         conf, mapping = calibrate(dev, path)
         print(f"min_conf {conf:.6f}, mapping {mapping}")
@@ -708,7 +1010,7 @@ def main() -> int:
             if launches[name] <= 0:
                 raise AssertionError(f"the main path never launched the {name} kernel")
         phase("switched pipeline: fused ReID block + staged association", card)
-        launches_sw, df_sw = run_switched(dev, tmp, conf, mapping)
+        launches_sw, df_sw = run_switched(dev, tmp, path_sw, zones_sw, conf, mapping)
         n_default = df[df.frame_id < N_SWITCHED].track_id.nunique() if len(df) else 0
         n_switched = df_sw.track_id.nunique() if len(df_sw) else 0
         print(f"tracks in the zone over the first {N_SWITCHED} frames: switched run {n_switched}, "
@@ -717,12 +1019,24 @@ def main() -> int:
         launches_k6 = run_layer1_path(dev, path)
         phase("parity", card)
         scan = check_parity(dev, path)
+        phase("--profile CLI run + profile_summary", card)
+        prof = run_profile(dev, tmp, path_sw, zones_sw, conf, mapping)
+        phase("--weight CLI run (seeded .pt + .t7)", card)
+        wts = run_weights(dev, tmp, path_sw, zones_sw)
 
+    phase("stage_bench", card)
+    stages, launches_stage = run_stage_bench(dev)
+    phase("bench", card)
+    telemetry, metric, launches_bench = run_bench(dev)
+
+    floor_ms = k7["probe"]["bare_launch_us"] / 1e3
     kernels = [
         dict(name="crop_gather", route="cuda", source="vehicle_counting_tpu_torch/csrc/crops.cu",
-             replaces="vehicle_counting_tpu/ops/pallas/crops.py:240", launches=launches["crops"], **k1),
+             replaces="vehicle_counting_tpu/ops/pallas/crops.py:240", launches=launches["crops"],
+             launches_bench=launches_bench["crops"], launches_stage_bench=launches_stage["crops"], **k1),
         dict(name="cascade_match", route="cuda", source="vehicle_counting_tpu_torch/csrc/cascade.cu",
-             replaces="vehicle_counting_tpu/ops/pallas/cascade.py:887", launches=launches["cascade"], **k2),
+             replaces="vehicle_counting_tpu/ops/pallas/cascade.py:887", launches=launches["cascade"],
+             launches_bench=launches_bench["cascade"], launches_stage_bench=launches_stage["cascade"], **k2),
         dict(name="insert_rows", route="cuda", source="vehicle_counting_tpu_torch/csrc/assignment.cu",
              replaces="vehicle_counting_tpu/ops/pallas/assignment.py:179", launches=launches_sw["assignment"],
              path="switched", **k4),
@@ -732,11 +1046,24 @@ def main() -> int:
         dict(name="conv1_s2_silu", route="cuda", source="vehicle_counting_tpu_torch/csrc/conv_s2.cu",
              replaces="vehicle_counting_tpu/ops/pallas/conv_s2.py:181", launches=launches_k6,
              path="layer-1 stand-alone", **k6["bfloat16"], f32=k6["float32"]),
+        dict(name="noop_add1", route="cuda", source="vehicle_counting_tpu_torch/csrc/noop.cu",
+             replaces="benchmarks/micro/noop_launch.py:14", path="launch-cost probe", **k7),
     ]
+    for k in kernels:
+        k["launch_floor_ms"] = floor_ms  # the bare ctypes launch of K7, this run
     print(f"pipeline frames/s: {fps:.2f} [{card}]")
     print(f"embed ms/frame, bf16: K5 off {emb['off']:.4f}, K5 on {emb['on']:.4f} [{card}]")
     print(f"tracker ms/frame, f32 B=16: K2 route min {min(scan['k2']):.4f}, staged route min "
           f"{min(scan['staged']):.4f} [{card}]")
+    print(f"launch cost, us: {json.dumps(k7['probe'])} [{card}]")
+    print(f"stage_bench ms/frame (min, median): {json.dumps(stages)} [{card}]")
+    print(f"bench: {json.dumps(metric)}; streamed p50 {telemetry['p50_fps']} min {telemetry['min_fps']} best "
+          f"{telemetry['best_fps']}, device-resident {telemetry['device_resident_fps']} frames/s, upload GB/s best "
+          f"{telemetry['upload_gbps_best']} p50 {telemetry['upload_gbps_p50']}, p50 by stream count "
+          f"{telemetry['upload_gbps_p50_by_streams']} [{card}]")
+    print(f"--profile run: {json.dumps(prof)} [{card}]")
+    print(f"--weight run: {json.dumps(wts)} [{card}]")
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

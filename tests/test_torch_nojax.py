@@ -1,5 +1,9 @@
-"""The PyTorch port imports no JAX: every module imports with jax blocked."""
+"""The PyTorch port imports no JAX and nothing of the JAX package: every
+module imports with `jax` and `vehicle_counting_tpu` blocked, and no source
+file of the port names either in an import."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -34,6 +38,22 @@ PORT_MODULES = [
     "vehicle_counting_tpu_torch.pipeline.step",
     "vehicle_counting_tpu_torch.run",
     "vehicle_counting_tpu_torch.utils.profiling",
+    "vehicle_counting_tpu_torch.utils.colors",
+    "vehicle_counting_tpu_torch.utils.device",
+    "vehicle_counting_tpu_torch.utils.transfer",
+    "vehicle_counting_tpu_torch.configs",
+    "vehicle_counting_tpu_torch.counting",
+    "vehicle_counting_tpu_torch.counting.polygon",
+    "vehicle_counting_tpu_torch.counting.counter",
+    "vehicle_counting_tpu_torch.counting.visualize",
+    "vehicle_counting_tpu_torch.data",
+    "vehicle_counting_tpu_torch.data.video",
+    "vehicle_counting_tpu_torch.ops.noop",
+    "vehicle_counting_tpu_torch.tools.profile_summary",
+    "vehicle_counting_tpu_torch.benchmarks.load",
+    "vehicle_counting_tpu_torch.benchmarks.micro.noop_launch",
+    "vehicle_counting_tpu_torch.bench",
+    "vehicle_counting_tpu_torch.stage_bench",
 ]
 
 
@@ -41,10 +61,12 @@ def test_port_imports_without_jax():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['vehicle_counting_tpu'] = None\n"
         "import importlib\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'vehicle_counting_tpu') for k, v in sys.modules.items()"
+        " if v is not None)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -54,8 +76,38 @@ def test_port_imports_without_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("flag", ["--multicam", "--frame_parallel", "--detect_only", "--check_numerics",
-                                  "--profile", "--weight=x.pt"])
+def _port_sources():
+    files = glob.glob(os.path.join(REPO, "vehicle_counting_tpu_torch", "**", "*.py"), recursive=True)
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_port_sources_found():
+    names = {os.path.relpath(f, REPO) for f in _port_sources()}
+    assert len(names) > 40
+    for m in PORT_MODULES[1:]:
+        base = m.replace(".", os.sep)
+        assert base + ".py" in names or os.path.join(base, "__init__.py") in names, m
+
+
+def test_no_source_imports_the_jax_package():
+    """ast, not grep: strings such as chip_smoke's `replaces=` fields may
+    name the JAX package, imports may not."""
+    banned = ("jax", "jaxlib", "flax", "optax", "vehicle_counting_tpu")
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            mods = []
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {m}" for m in mods if m.split(".")[0] in banned]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("flag", ["--multicam", "--frame_parallel", "--detect_only"])
 def test_cli_unported_flags_raise(flag, tmp_path):
     from vehicle_counting_tpu_torch import run
 

@@ -9,7 +9,8 @@ TPU-only odd->even spatial pad (`_conv3_even`) is not carried over: it was
 a bitwise-neutral layout trick for the TPU.
 
 Params and stats are plain dicts (OIHW conv weights), carried across from
-the JAX pytrees by `models/convert.py::reid_params_from_jax`.
+the JAX pytrees by `models/convert.py::reid_params_from_jax` or loaded
+from the reference's `ckpt.t7` by `load_reid_weights`.
 
 The two stage-1 blocks (64 channels at 25x25) can run as one fused kernel
 each (K5, `ops/reid_block.py`), off by default as in the JAX package and
@@ -135,6 +136,88 @@ def reid_forward_nchw(params, stats, x: torch.Tensor, dtype=torch.float32) -> to
 def reid_forward(params, stats, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """JAX layout: x [N, 50, 50, 3] normalised crops -> [N, 512] embeddings."""
     return reid_forward_nchw(params, stats, x.permute(0, 3, 1, 2), dtype)
+
+
+# ---------------------------------------------------------------------------
+# torch .t7 conversion (name-mapped, BN kept explicit)
+# ---------------------------------------------------------------------------
+
+def reid_state_dict_to_params(sd, device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Map the reference's `net_dict` names onto (params, batch_stats).
+
+    Torch layout: conv.0/conv.1 stem; layer{1..4}.{0,1}.conv1/bn1/conv2/bn2
+    (+ .downsample.0/.1); classifier.0 (linear), .1 (bn1d), .4 (linear).
+    Conv weights stay OIHW; dense weights are stored [in, out] as in the
+    JAX package (the classifier serves training only and is carried for
+    completeness).
+    """
+    import numpy as np
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(device)
+
+    def bn(prefix):
+        return (
+            {"scale": t(sd[f"{prefix}.weight"]), "bias": t(sd[f"{prefix}.bias"])},
+            {"mean": t(sd[f"{prefix}.running_mean"]), "var": t(sd[f"{prefix}.running_var"])},
+        )
+
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    bn_p, bn_s = bn("conv.1")
+    params["stem"] = {"w": t(sd["conv.0.weight"]), "b": t(sd["conv.0.bias"]), "bn": bn_p}
+    stats["stem"] = bn_s
+
+    for si in range(4):
+        for bi in range(2):
+            name = f"layer{si + 1}_{bi}"
+            tbase = f"layer{si + 1}.{bi}"
+            bn1_p, bn1_s = bn(f"{tbase}.bn1")
+            bn2_p, bn2_s = bn(f"{tbase}.bn2")
+            p = {
+                "conv1": {"w": t(sd[f"{tbase}.conv1.weight"])},
+                "bn1": bn1_p,
+                "conv2": {"w": t(sd[f"{tbase}.conv2.weight"])},
+                "bn2": bn2_p,
+            }
+            s = {"bn1": bn1_s, "bn2": bn2_s}
+            if f"{tbase}.downsample.0.weight" in sd:
+                dbn_p, dbn_s = bn(f"{tbase}.downsample.1")
+                p["down"] = {"w": t(sd[f"{tbase}.downsample.0.weight"]), "bn": dbn_p}
+                s["down"] = dbn_s
+            params[name] = p
+            stats[name] = s
+
+    if "classifier.0.weight" in sd:
+        cbn_p, cbn_s = bn("classifier.1")
+        params["fc1"] = {
+            "w": t(np.transpose(sd["classifier.0.weight"])),
+            "b": t(sd["classifier.0.bias"]),
+            "bn": cbn_p,
+        }
+        stats["fc1"] = cbn_s
+        params["fc2"] = {
+            "w": t(np.transpose(sd["classifier.4.weight"])),
+            "b": t(sd["classifier.4.bias"]),
+        }
+    return params, stats
+
+
+def load_reid_weights(path: str, device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Load the reference `ckpt.t7` (or an .npz) into (params, stats)."""
+    if path.endswith(".npz"):
+        import numpy as np
+
+        data = np.load(path)
+        sd = {k: data[k] for k in data.files}
+    else:
+        from vehicle_counting_tpu_torch.models.convert import (
+            extract_state_dict,
+            load_torch_checkpoint,
+        )
+
+        sd = extract_state_dict(load_torch_checkpoint(path))
+    return reid_state_dict_to_params(sd, device)
 
 
 def cast_conv_weights(params, dtype: torch.dtype):

@@ -6,7 +6,7 @@ host, letterbox + pack I420 and upload one batch ahead in a worker thread,
 run the fused detect+track step (`pipeline/step.py`) on the device, read
 back the small [B, C, K] track outputs one batch behind, then zone
 filtering, direction assignment, CSV and the annotated MP4 on the host
-(the reference package's JAX-free `counting/` and `data/` modules).
+(this package's `counting/` and `data/` modules).
 
 Artifacts: {output}/{cam}.csv with the reference's 10-column schema and
 {output}/{cam}.mp4; zone annotation at {zone_path}/{cam}.json.
@@ -14,6 +14,7 @@ Artifacts: {output}/{cam}.csv with the reference's 10-column schema and
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, List, Optional
@@ -21,16 +22,18 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from vehicle_counting_tpu.configs import Config, default_cam_config, default_config
-from vehicle_counting_tpu.counting import VehicleCounter, count_directions
-from vehicle_counting_tpu.counting.visualize import visualize_merged
-from vehicle_counting_tpu.data.video import VideoReader, VideoWriter, list_videos
+from vehicle_counting_tpu_torch.configs import Config, default_cam_config, default_config
+from vehicle_counting_tpu_torch.counting import VehicleCounter, count_directions
+from vehicle_counting_tpu_torch.counting.visualize import visualize_merged
+from vehicle_counting_tpu_torch.data.video import VideoReader, VideoWriter, list_videos
 from vehicle_counting_tpu_torch.models.detector import (
     COCO_VEHICLE_MAPPING,
     VEHICLE_CLASS_NAMES,
     class_lut,
 )
-from vehicle_counting_tpu_torch.utils.profiling import StageTimer
+from vehicle_counting_tpu_torch.utils.device import require_device
+from vehicle_counting_tpu_torch.utils.profiling import StageTimer, trace
+from vehicle_counting_tpu_torch.utils.transfer import parallel_device_put
 
 
 def prefetch(fetch, prep):
@@ -57,11 +60,25 @@ def prefetch(fetch, prep):
         pool.shutdown()
 
 
+def check_step_finite(det, states, frame_id) -> None:
+    """--check_numerics: raise at the first non-finite box or score among
+    the step's valid detections, or Kalman mean or covariance in the
+    tracker state it leaves (the track boxes read back are integer pixels,
+    which hide a NaN). One device->host sync per batch."""
+    valid = det["valid"]
+    for name in ("boxes", "scores"):
+        if not bool(torch.isfinite(det[name][valid]).all()):
+            raise FloatingPointError(f"non-finite detection {name} in batch at frame {frame_id}")
+    for name in ("mean", "cov"):
+        if not bool(torch.isfinite(getattr(states, name)).all()):
+            raise FloatingPointError(f"non-finite tracker {name} after the batch at frame {frame_id}")
+
+
 class CountingPipeline:
     """Mirror of the reference CountingPipeline surface, on one torch device."""
 
     def __init__(self, args, config: Optional[Config] = None, cam_config: Optional[Config] = None):
-        from vehicle_counting_tpu_torch.models.reid import cast_conv_weights, init_reid
+        from vehicle_counting_tpu_torch.models.reid import cast_conv_weights, init_reid, load_reid_weights
         from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params, init_yolov5
 
         self.config = config or default_config()
@@ -71,9 +88,7 @@ class CountingPipeline:
         self.saved_path = args.output_path
         self.zone_path = self.cam_config.zone_path
         os.makedirs(self.saved_path or ".", exist_ok=True)
-        self.device = torch.device(getattr(args, "device", None) or "cuda")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+        self.device = require_device(getattr(args, "device", None))
 
         self.dtype = torch.float32 if self.config.compute_dtype == "float32" else torch.bfloat16
         if self.dtype == torch.float32 and self.device.type == "cuda":
@@ -81,15 +96,21 @@ class CountingPipeline:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
 
-        # ---- detector (random init from a seed; no download) --------------
-        if getattr(args, "weight", None):
-            raise NotImplementedError("--weight (checkpoint loading) is not yet ported to the PyTorch package")
+        # ---- detector (a checkpoint, else random init from a seed; no download)
+        weight = getattr(args, "weight", None)
         variant = self.config.model_name or "yolov5s"
-        nc = 80
-        print("[pipeline] no weights given; using a random-init detector (seed 0)")
-        self.ycfg = YoloConfig(variant=variant, num_classes=nc)
-        gen = torch.Generator().manual_seed(0)
-        self.yolo_params = cast_params(init_yolov5(gen, self.ycfg, self.device), self.dtype)
+        if weight:
+            from vehicle_counting_tpu_torch.models.convert import load_yolov5_weights
+
+            yolo_params = load_yolov5_weights(weight, self.device)
+            nc = yolo_params["24"]["m"][0]["b"].shape[0] // 3 - 5
+            self.ycfg = YoloConfig(variant=variant, num_classes=nc)
+        else:
+            nc = 80
+            print("[pipeline] no weights given; using a random-init detector (seed 0)")
+            self.ycfg = YoloConfig(variant=variant, num_classes=nc)
+            yolo_params = init_yolov5(torch.Generator().manual_seed(0), self.ycfg, self.device)
+        self.yolo_params = cast_params(yolo_params, self.dtype)
 
         # ---- class mapping -------------------------------------------------
         mapping: Optional[Dict[int, int]] = getattr(args, "mapping_dict", None)
@@ -105,8 +126,9 @@ class CountingPipeline:
         # ---- ReID ----------------------------------------------------------
         ckpt = self.cam_config.checkpoint or self.config.reid_checkpoint
         if ckpt and os.path.exists(ckpt):
-            raise NotImplementedError("ReID checkpoint loading is not yet ported to the PyTorch package")
-        reid_params, self.reid_stats = init_reid(torch.Generator().manual_seed(1), device=self.device)
+            reid_params, self.reid_stats = load_reid_weights(ckpt, self.device)
+        else:
+            reid_params, self.reid_stats = init_reid(torch.Generator().manual_seed(1), device=self.device)
         self.reid_params = cast_conv_weights(reid_params, self.dtype)
 
         # ---- shapes / thresholds ------------------------------------------
@@ -119,7 +141,12 @@ class CountingPipeline:
         self.batch_size = int(self.config.detect_batch or 8)
         self.capacity = int(self.config.max_tracks_per_class or 64)
         self.all_video_paths = list_videos(self.video_path)
+        # ---- observability --------------------------------------------------
         self.debug = bool(getattr(args, "debug", False))
+        profile = getattr(args, "profile", None)
+        self.profile_dir = None if not profile else (profile if isinstance(profile, str) else "vct_trace")
+        self.last_trace = None  # path of the most recent --profile trace
+        self.check_numerics = bool(getattr(args, "check_numerics", False))
         self.last_timer = None
 
     @staticmethod
@@ -159,10 +186,7 @@ class CountingPipeline:
         )
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(host)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return parallel_device_put(host, device=self.device)
 
     def run_video(self, video_path: str, visualize: bool = True) -> Dict:
         """Process one video; returns {'csv', 'counts', 'fps', 'frames'}."""
@@ -211,6 +235,8 @@ class CountingPipeline:
                 mask = touts.mask.cpu().numpy()  # [B, C, K]
                 ids = touts.ids.cpu().numpy()
                 boxes = touts.boxes.cpu().numpy()
+            if self.check_numerics and not np.isfinite(boxes[mask]).all():  # float boxes only; see check_step_finite
+                raise FloatingPointError(f"non-finite track boxes in batch at frame {frame_ids[0]}")
             num_frames += int(valid.sum())
             b, c, k = np.nonzero(mask)
             if b.size:
@@ -219,22 +245,29 @@ class CountingPipeline:
                 rows["labels"].extend(c.tolist())
                 rows["boxes"].extend(boxes[b, c, k])
 
+        profile_ctx = trace(self.profile_dir) if self.profile_dir else contextlib.nullcontext({})
         pending = None
-        for fdev, vdev, frame_ids, valid in prefetch(fetch, prep):
-            with timer.stage("dispatch"):
-                states, _, touts = step_mod.pipeline_batch_step(
-                    self.yolo_params, self.reid_params, self.reid_stats, states,
-                    fdev, vdev, self.class_lut,
-                    ycfg=self.ycfg, hp=hp, image_size=net_hw, src_hw=src_hw,
-                    conf_thres=self.conf_thres, iou_thres=self.iou_thres,
-                    max_det=self.max_det, dtype=self.dtype,
-                    frames_format="letterboxed_yuv420",
-                )
+        with profile_ctx as traced:
+            for fdev, vdev, frame_ids, valid in prefetch(fetch, prep):
+                with timer.stage("dispatch"):
+                    states, det, touts = step_mod.pipeline_batch_step(
+                        self.yolo_params, self.reid_params, self.reid_stats, states,
+                        fdev, vdev, self.class_lut,
+                        ycfg=self.ycfg, hp=hp, image_size=net_hw, src_hw=src_hw,
+                        conf_thres=self.conf_thres, iou_thres=self.iou_thres,
+                        max_det=self.max_det, dtype=self.dtype,
+                        frames_format="letterboxed_yuv420",
+                    )
+                if self.check_numerics:
+                    check_step_finite(det, states, frame_ids[0])
+                if pending is not None:
+                    drain(pending)
+                pending = (touts, frame_ids, valid)
             if pending is not None:
                 drain(pending)
-            pending = (touts, frame_ids, valid)
-        if pending is not None:
-            drain(pending)
+        if self.profile_dir:
+            self.last_trace = traced["path"]
+            print(f"[profile] torch.profiler trace written to {self.last_trace}")
 
         elapsed = time.perf_counter() - t_start
         fps = num_frames / elapsed if elapsed > 0 else 0.0

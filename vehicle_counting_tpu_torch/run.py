@@ -3,9 +3,11 @@
     python -m vehicle_counting_tpu_torch.run --input_path <video-or-dir> \
         --output_path <dir> [--mapping coco|'{"2": 1, ...}'] [--debug] [--no_visualize]
 
-The detector and ReID weights are random-init from fixed seeds:
-checkpoint loading (--weight) is not yet ported. Flags of paths the port
-does not have yet raise instead of being ignored.
+--weight takes an ultralytics yolov5 v6.0 `.pt` (or an `.npz` state dict);
+the ReID checkpoint is `checkpoint:` in cam_configs.yaml. Without them the
+detector and ReID weights are random-init from fixed seeds: nothing is
+downloaded. Flags of paths the port does not have yet raise instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import json
 import os
 
 parser = argparse.ArgumentParser(description="Perform Counting vehicles (PyTorch + CUDA)")
-parser.add_argument("--weight", type=str, default=None, help="checkpoint of yolo (not yet ported)")
+parser.add_argument("--weight", type=str, default=None, help="yolov5 checkpoint (.pt / .npz); random init without it")
 parser.add_argument("--input_path", type=str, required=True, help="video file or directory")
 parser.add_argument("--output_path", type=str, required=True, help="directory for CSV/MP4 outputs")
 parser.add_argument("--gpus", type=str, default="0", help="accepted for parity with the reference; use --device")
@@ -26,14 +28,19 @@ parser.add_argument("--mapping", default=None,
 parser.add_argument("--config", type=str, default=None, help="path to configs.yaml override")
 parser.add_argument("--cam_config", type=str, default=None, help="path to cam_configs.yaml override")
 parser.add_argument("--no_visualize", action="store_true", help="skip the annotated-MP4 second pass")
+parser.add_argument("--profile", nargs="?", const="vct_trace", default=None, metavar="DIR",
+                    help="torch.profiler Chrome trace of the batch loop into DIR (default ./vct_trace); one event per "
+                         "host op and device kernel, ~160 MB per 128-frame batch and the run several times slower: profile a "
+                         "short clip, then "
+                         "python -m vehicle_counting_tpu_torch.tools.profile_summary DIR")
+parser.add_argument("--check_numerics", action="store_true",
+                    help="raise at the first non-finite detection or tracker state (one extra sync per batch)")
 # paths of the reference package that are not ported yet: they raise
-parser.add_argument("--profile", nargs="?", const="trace", default=None, metavar="DIR", help="not yet ported")
-parser.add_argument("--check_numerics", action="store_true", help="not yet ported")
 parser.add_argument("--detect_only", action="store_true", help="not yet ported")
 parser.add_argument("--multicam", action="store_true", help="not yet ported")
 parser.add_argument("--frame_parallel", action="store_true", help="not yet ported")
 
-_NOT_PORTED = ("profile", "check_numerics", "detect_only", "multicam", "frame_parallel", "weight")
+_NOT_PORTED = ("detect_only", "multicam", "frame_parallel")
 
 
 def _mapping_dict(mapping):
@@ -66,7 +73,7 @@ def main(args, config, cam_config):
 
 def load_configs(args):
     """(config, cam_config) from the flags, ./configs/*.yaml, or the defaults."""
-    from vehicle_counting_tpu.configs import Config, default_cam_config, default_config
+    from vehicle_counting_tpu_torch.configs import Config, default_cam_config, default_config
 
     def pick(path, name, default):
         if path:

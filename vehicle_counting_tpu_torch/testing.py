@@ -115,3 +115,80 @@ def crop_boxes(rng: np.random.Generator, d: int, h: int, w: int) -> np.ndarray:
     boxes[n : 2 * n] = [[0.0, 0.0, 1.0, 1.0]] * n                 # one pixel
     boxes[2 * n : 3 * n] = [[30.0, 40.0, 10.0, 20.0]] * n         # degenerate
     return boxes.astype(np.float32)
+
+
+def fake_yolov5_state_dict(rng: np.random.Generator, variant: str = "yolov5s",
+                           num_classes: int = 80) -> Dict[str, np.ndarray]:
+    """A state dict named and shaped like an ultralytics v6.0 yolov5
+    checkpoint's (`model.<i>.conv.weight`, `.bn.*`, `model.24.m.<j>.*`,
+    `model.24.anchors`), with seeded weights and non-trivial BN statistics."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.yolo import STRIDES, YoloConfig, init_yolov5
+
+    cfg = YoloConfig(variant=variant, num_classes=num_classes)
+    tree = init_yolov5(torch.Generator().manual_seed(0), cfg)
+    sd: Dict[str, np.ndarray] = {}
+
+    def visit(node, path):
+        if isinstance(node, list):
+            for j, child in enumerate(node):
+                visit(child, f"{path}.{j}")
+        elif "w" in node:
+            cout, cin, kh, kw = node["w"].shape
+            w = (rng.standard_normal((cout, cin, kh, kw)) * np.sqrt(2.0 / (cin * kh * kw))).astype(np.float32)
+            if path.startswith("24."):
+                sd[f"model.{path}.weight"] = w
+                sd[f"model.{path}.bias"] = rng.normal(0, 0.1, cout).astype(np.float32)
+                return
+            sd[f"model.{path}.conv.weight"] = w
+            sd[f"model.{path}.bn.weight"] = rng.uniform(0.5, 1.5, cout).astype(np.float32)
+            sd[f"model.{path}.bn.bias"] = rng.normal(0, 0.1, cout).astype(np.float32)
+            sd[f"model.{path}.bn.running_mean"] = rng.normal(0, 0.1, cout).astype(np.float32)
+            sd[f"model.{path}.bn.running_var"] = rng.uniform(0.5, 1.5, cout).astype(np.float32)
+        else:
+            for key, child in node.items():
+                visit(child, f"{path}.{key}" if path else key)
+
+    visit(tree, "")
+    anchors = np.asarray(cfg.anchors, np.float32)  # [nl, na, 2] pixels
+    sd["model.24.anchors"] = anchors / np.asarray(STRIDES, np.float32)[:, None, None]
+    return sd
+
+
+def fake_reid_state_dict(rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    """A `net_dict` named and shaped like the reference ReID `ckpt.t7`'s
+    (conv.0/conv.1 stem, layer{1..4}.{0,1}.*, no classifier), seeded."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.reid import init_reid
+
+    params, _ = init_reid(torch.Generator().manual_seed(1))
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(name, like):
+        cout, cin, kh, kw = like.shape
+        sd[f"{name}.weight"] = (rng.standard_normal(tuple(like.shape)) * np.sqrt(2.0 / (cin * kh * kw))).astype(np.float32)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        sd[f"{name}.bias"] = rng.normal(0, 0.1, c).astype(np.float32)
+        sd[f"{name}.running_mean"] = rng.normal(0, 0.2, c).astype(np.float32)
+        sd[f"{name}.running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+
+    conv("conv.0", params["stem"]["w"])
+    sd["conv.0.bias"] = rng.normal(0, 0.1, 64).astype(np.float32)
+    bn("conv.1", 64)
+    for name, p in params.items():
+        if name == "stem":
+            continue
+        base = name.replace("_", ".")  # layer1_0 -> layer1.0
+        c = p["conv1"]["w"].shape[0]
+        conv(f"{base}.conv1", p["conv1"]["w"])
+        bn(f"{base}.bn1", c)
+        conv(f"{base}.conv2", p["conv2"]["w"])
+        bn(f"{base}.bn2", c)
+        if "down" in p:
+            conv(f"{base}.downsample.0", p["down"]["w"])
+            bn(f"{base}.downsample.1", c)
+    return sd

@@ -1,12 +1,15 @@
-"""Per-stage wall-time accounting for the pipeline (`--debug`).
+"""Tracing/profiling hooks (counterpart of the JAX package's
+`utils/profiling.py`).
 
-Copy of `vehicle_counting_tpu/utils/profiling.py::StageTimer`; that
-module's package also carries the JAX trace hooks.
+`StageTimer` records wall time per pipeline stage (`--debug`); `trace`
+wraps `torch.profiler` around a region and writes a Chrome trace that
+`tools/profile_summary.py` reads.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict
@@ -34,3 +37,35 @@ class StageTimer:
             t, n = self.totals[name], self.counts[name]
             lines.append(f"{name}: {t:.3f}s total, {t / max(n, 1) * 1e3:.2f}ms avg x{n}")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "vct_trace"):
+    """`torch.profiler` capture of the enclosed region (host ops and, where
+    there is a card, its kernels and copies). On exit the Chrome trace is
+    written to `log_dir/trace_<ns>.json`; the yielded dict gets its path
+    under "path". View it in Perfetto or chrome://tracing, or summarise it
+    with `python -m vehicle_counting_tpu_torch.tools.profile_summary`.
+
+    The trace holds one event per host op and per device kernel: a B=128
+    batch of the counting step is ~67,000 device events and ~160 MB of
+    JSON, and the traced run is several times slower, so trace a batch or
+    two, not a whole video.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    acts = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA) if a in supported_activities()]
+    os.makedirs(log_dir, exist_ok=True)
+    info = {"path": None}
+    prof = profile(activities=acts)
+    prof.__enter__()
+    try:
+        yield info
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        path = os.path.join(log_dir, f"trace_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        info["path"] = path
