@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --cli-ab   # only the CLI's frames/s, repeated (see cli_ab)
+    python3 chip_smoke.py --kernel-ab [--root DIR]   # only the K1, K6, K7 checks of a checkout (see kernel_ab)
 
 Phases, each fatal on failure:
   build     compile the hand-written kernels (csrc/*.cu) with nvcc, one
             process per source, all at once;
   K1        crop gather kernel vs its plain version on the card, array-equal,
             at the driven paths' shapes (B=128 planar 384x640 u8 frames):
-            128 crops incl. edge and clamp boxes (the step's embed chunk)
-            and stage_bench's single call over 3840 crops;
+            128 crops incl. edge, clamp, one-pixel and frame-sized boxes
+            (the step's embed chunk; both routes of the kernel, staged and
+            direct, must run) and stage_bench's single call over 3840
+            crops; device kernels per call (exactly one) and device time;
   K2        association kernel (and its per-class entry K3) vs the plain
             version, bitwise, at C=4, K=64, max_age=30 (random, tie, empty);
   K4        batched assignment kernel vs its plain version, bitwise, on 300
@@ -22,8 +25,10 @@ Phases, each fatal on failure:
             at N=3840; its ptxas registers and shared memory;
   embed     the ReID embed at the main path's shapes with K5 off and on;
   K6        layer-1 conv (3x3 s2, 32->64, SiLU) vs its plain version at
-            [128, 192, 320, 32] bf16 and a small f32 shape, with the library
-            call (F.conv2d bf16 channels-last + F.silu) timed beside it;
+            [128, 192, 320, 32] bf16, [3, 64, 128, 32] bf16 (edge tiles) and
+            a small f32 shape, with the library call (F.conv2d channels-last
+            + F.silu) timed beside it; the bf16 variant's ptxas registers,
+            shared memory and HGMMA count;
   K7        the launch-cost probe kernel vs its plain version, array-equal,
             then the probe itself: us per launch eager and in a captured
             CUDA graph, for the kernel and the torch equivalent, and the
@@ -111,9 +116,12 @@ def cuda_ms(fn, n):
 def check_k1(dev):
     """K1 against its plain version, array-equal, at both shapes the driven
     paths give it: 128 crops (a chunk of the step's embed; edge and clamp
-    boxes, 10 % invalid) and stage_bench's one call over 3840 crops (128
-    frames x 30 seed-3 boxes in network-input pixels). Returns the
-    128-crop numbers with the 3840-crop ones under "d3840"."""
+    boxes, frame-sized and one-pixel boxes, 10 % invalid) and stage_bench's
+    one call over 3840 crops (128 frames x 30 seed-3 boxes in network-input
+    pixels). The 128 crops must take both routes of the kernel (band staged
+    in shared memory; taps from global memory), and a call must run exactly
+    one device kernel. Returns the 128-crop numbers with the 3840-crop ones
+    under "d3840"."""
     import torch
 
     from vehicle_counting_tpu_torch.benchmarks.load import crop_gather_inputs, synthetic_boxes
@@ -124,14 +132,19 @@ def check_k1(dev):
     rng = np.random.default_rng(SEED)
     b, h, w, d = 128, 384, 640, 128
     frames = torch.from_numpy(rng.integers(0, 256, (b, 3, h, w), dtype=np.uint8)).to(dev)
-    boxes = torch.from_numpy(crop_boxes(rng, d, h, w)).to(dev)
+    boxes_np = crop_boxes(rng, d, h, w)
     fidx = torch.from_numpy(rng.integers(0, b, d).astype(np.int32)).to(dev)
-    valid = torch.from_numpy(rng.random(d) < 0.9).to(dev)
+    valid_np = rng.random(d) < 0.9
+    boxes_np[-8:] = [[0, 0, w, h], [0, 0, w - 1, h - 1], [-1, -1, w + 1, h + 1], [0.5, 0.5, w - 0.5, h - 0.5],
+                     [w - 1, h - 1, w, h], [10.7, 20.2, 11.9, 21.1], [5, 5, 5, 5], [w / 2, h / 2, w / 2 + 1, h / 2 + 1]]
+    valid_np[-8:] = True
+    boxes, valid = torch.from_numpy(boxes_np).to(dev), torch.from_numpy(valid_np).to(dev)
     gain, pad_x, pad_y, _, _ = letterbox_params(SRC_HW, (h, w))
     churn = torch.from_numpy(synthetic_boxes(3, b, 300, SRC_HW).astype(np.float32)).to(dev)
     fidx_s, boxes_s, valid_s = crop_gather_inputs(churn, 30, gain, pad_x, pad_y)
+    band_max = crops._build.load("crops").vct_crop_gather_band_max()
     res = {}
-    for args, reps in (((frames, fidx, boxes, valid), 50), ((frames, fidx_s, boxes_s, valid_s), 10)):
+    for args, reps in (((frames, fidx, boxes, valid), 200), ((frames, fidx_s, boxes_s, valid_s), 20)):
         _, fi, bx, ok = args
         n = bx.shape[0]
         got = crops.gather_crops_batch(*args)
@@ -140,20 +153,43 @@ def check_k1(dev):
         err = float((got - want).abs().max())
         if not torch.equal(got, want):
             raise AssertionError(f"K1 kernel differs from its plain version on {n} crops: max |diff| {err}")
+        if not torch.equal(crops.gather_crops_batch(frames, fi.long(), bx, ok), want):
+            raise AssertionError(f"K1 kernel differs from its plain version on {n} crops with an int64 frame index")
+        # which route each crop took: the kernel counts its staged crops
+        staged = torch.zeros((), dtype=torch.int32, device=dev)
+        if not torch.equal(crops._launch(*args, staged_count=staged), want):
+            raise AssertionError(f"K1 kernel differs from its plain version on {n} crops (counted launch)")
+        n_staged, n_valid = int(staged), int(ok.sum())
+        if n == d and not 0 < n_staged < n_valid:
+            raise AssertionError(f"K1: {n_staged} of {n_valid} valid crops staged: both routes must run")
+        ev = device_events(lambda: crops.gather_crops_batch(*args))
+        if len(ev) != 1 or "crop_gather" not in ev[0][0]:
+            raise AssertionError(f"K1: a call must run exactly one device kernel, the trace shows {ev}")
         # plain, kernel, kernel, plain
-        t_plain = cuda_ms(lambda: crops.gather_crops_batch_plain(*args), max(reps // 2, 5))
+        t_plain = cuda_ms(lambda: crops.gather_crops_batch_plain(*args), 5)
         t_k = cuda_ms(lambda: crops.gather_crops_batch(*args), reps)
         t_k2 = cuda_ms(lambda: crops.gather_crops_batch(*args), reps)
-        t_plain2 = cuda_ms(lambda: crops.gather_crops_batch_plain(*args), max(reps // 2, 5))
+        t_plain2 = cuda_ms(lambda: crops.gather_crops_batch_plain(*args), 5)
         # bytes this call's crops need: each valid crop's source pixels (u8, 3
         # planes) once, the boxes, indices and mask, and the f32 output; the
         # bilinear mix is 8 taps * 2 flops per output value
         x1, y1, x2, y2 = (v[ok].long() for v in crops.crop_boxes_to_bounds(bx, h, w))
         src = int((3 * torch.clamp(x2 - x1 + 1, min=1) * torch.clamp(y2 - y1 + 1, min=1)).sum())
         bd = bound(src + nbytes(bx, fi, ok, got), 16 * got.numel(), F32_FLOPS)
-        print(f"K1 array-equal over {n} crops; kernel {t_k:.4f}/{t_k2:.4f} ms, plain {t_plain:.4f}/{t_plain2:.4f} ms; "
-              f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
-        res[n] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), **bd, "library_ms": None}
+        print(f"K1 array-equal over {n} crops (int32 and int64 frame index); {n_staged} of {n_valid} valid crops "
+              f"staged in shared memory (band <= {band_max} B), {n_valid - n_staged} direct; wrapper "
+              f"{t_k:.4f}/{t_k2:.4f} ms, plain {t_plain:.4f}/{t_plain2:.4f} ms; one call = {len(ev)} device kernel, "
+              f"device time {ev[0][1]:.4f} ms (torch.profiler); bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+        res[n] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), **bd, "library_ms": None,
+                  "device_ms": ev[0][1], "device_kernels": len(ev), "staged": n_staged, "direct": n_valid - n_staged}
+    # rows that are no 16-byte multiples cannot be staged: every crop direct
+    narrow = torch.from_numpy(rng.integers(0, 256, (2, 3, 96, 120), dtype=np.uint8)).to(dev)
+    args = (narrow, torch.from_numpy(rng.integers(0, 2, 64)).to(dev), torch.from_numpy(crop_boxes(rng, 64, 96, 120)).to(dev),
+            torch.ones(64, dtype=torch.bool, device=dev))
+    staged = torch.zeros((), dtype=torch.int32, device=dev)
+    if not torch.equal(crops._launch(*args, staged_count=staged), crops.gather_crops_batch_plain(*args)) or int(staged):
+        raise AssertionError(f"K1 kernel differs from its plain version on 96x120 frames, or staged {int(staged)} crops there")
+    print("K1 array-equal over 64 crops of 96x120 frames (rows not 16-byte multiples): all direct")
     return {**res[d], "d3840": res[3840]}
 
 
@@ -365,7 +401,10 @@ def embed_ab(dev, n_frames=128, per_frame=30):
 def device_events(fn):
     """(name, ms) of each kernel and copy that one call of fn runs on the
     card: a warm-up call, then one call under utils/profiling.trace, read
-    back from the trace file by tools/profile_summary."""
+    back from the trace file by tools/profile_summary. A capture does not
+    record the launches of its first microseconds, so it opens with a
+    throw-away op and the call sits in a named region: only device events
+    that start inside the region count."""
     import torch
 
     from vehicle_counting_tpu_torch.tools.profile_summary import load_device_events
@@ -375,26 +414,59 @@ def device_events(fn):
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp) as t:
-            fn()
+            torch.zeros(8, device="cuda").add_(1.0)
             torch.cuda.synchronize()
-        return [(e.name, e.dur_us / 1e3) for e in load_device_events(t["path"])]
+            time.sleep(0.005)
+            with torch.profiler.record_function("vct_device_events_region"):
+                fn()
+                torch.cuda.synchronize()
+        with open(t["path"]) as f:
+            data = json.load(f)
+        start = [float(e["ts"]) for e in (data["traceEvents"] if isinstance(data, dict) else data)
+                 if e.get("name") == "vct_device_events_region" and e.get("ph") == "X"]
+        if not start:
+            raise AssertionError("device_events: the trace holds no region marker")
+        return [(e.name, e.dur_us / 1e3) for e in load_device_events(t["path"]) if e.ts_us >= min(start)]
 
 
 def check_k6(dev):
     """bf16 rtol 1.6e-2 / atol 1e-2, f32 1e-5: the tolerances of
-    tests/test_torch_conv_s2.py."""
+    tests/test_torch_conv_s2.py. bf16 at the main path's shape (every
+    worker walks ~78 tiles: the ring turns) and at [3, 64, 128, 32], a
+    launch of 96 tiles, one per worker, 60 of them on an image's edge."""
+    import subprocess
+
     import torch
     import torch.nn.functional as F
 
+    from vehicle_counting_tpu_torch import _build
     from vehicle_counting_tpu_torch.models.convert import conv1_s2_from_jax
     from vehicle_counting_tpu_torch.ops import conv_s2
     from vehicle_counting_tpu_torch.testing import conv1_s2_inputs
 
+    fn, ptxas = None, {}
+    for ln in _build.BUILD_LOGS.get("conv_s2", "").splitlines():
+        if "Compiling entry function" in ln:
+            fn = "bf16" if "conv1_s2_bf16" in ln else "f32"
+        elif fn and ("Used" in ln or "spill" in ln or "wgmma" in ln):
+            ptxas.setdefault(fn, []).append(ln.split("ptxas info    :")[-1].strip())
+    lib = _build.load("conv_s2")
+    for fn in ("bf16", "f32"):
+        print(f"K6 {fn} ptxas: {ptxas.get(fn, '(cached: no report)')}; dynamic smem per block "
+              f"{lib.vct_conv1_s2_smem(int(fn == 'bf16'))} B")
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):  # the tensor-core instruction in the built code, not a library's
+        sass = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True, text=True).stdout
+        print(f"K6 SASS: {sass.count('HGMMA')} HGMMA (wgmma) and {sass.count('LDSM')} LDSM (ldmatrix) instructions")
+        if "HGMMA" not in sass:
+            raise AssertionError("K6: the built kernel holds no HGMMA instruction")
     torch.backends.cudnn.allow_tf32 = False  # the plain version's f32 conv
     rng = np.random.default_rng(SEED + 6)
     res = {}
-    for shape, dt, tol in (((128, 192, 320, 32), torch.bfloat16, dict(rtol=1.6e-2, atol=1e-2)),
-                           ((2, 64, 128, 32), torch.float32, dict(rtol=1e-5, atol=1e-5))):
+    bf16_tol = dict(rtol=1.6e-2, atol=1e-2)
+    for key, shape, dt, tol in (("bfloat16", (128, 192, 320, 32), torch.bfloat16, bf16_tol),
+                                ("bfloat16_edges", (3, 64, 128, 32), torch.bfloat16, bf16_tol),
+                                ("float32", (2, 64, 128, 32), torch.float32, dict(rtol=1e-5, atol=1e-5))):
         x, p = conv1_s2_inputs(rng, shape)
         w, b = conv1_s2_from_jax(p, dev)
         xt = torch.from_numpy(x).to(dev).to(dt)
@@ -402,7 +474,7 @@ def check_k6(dev):
         want = conv_s2.conv1_s2_silu_plain(xt, w, b).float()
         err = float((got - want).abs().max())
         torch.testing.assert_close(got, want, **tol)
-        n = 5 if dt == torch.bfloat16 else 20
+        n = 10 if shape[0] == 128 else 20
         t_plain = cuda_ms(lambda: conv_s2.conv1_s2_silu_plain(xt, w, b), n)
         t_k = cuda_ms(lambda: conv_s2.conv1_s2_silu(xt, w, b), n)
         t_k2 = cuda_ms(lambda: conv_s2.conv1_s2_silu(xt, w, b), n)
@@ -419,12 +491,27 @@ def check_k6(dev):
 
         lib_err = float((library().permute(0, 2, 3, 1).float() - want).abs().max())
         t_lib = min(cuda_ms(library, n), cuda_ms(library, n))
+        ev = device_events(lambda: conv_s2.conv1_s2_silu(xt, w, b))
+        dev_k = [ms for nm, ms in ev if "conv1_s2" in nm]
+        if not dev_k:
+            raise AssertionError(f"K6: no conv1_s2 kernel among the call's device events {ev}")
         # x and out once, weights and bias once; 2 * 9 * 32 * 64 flops per output pixel
-        bd = bound(nbytes(xt, got.to(dt), w.to(dt), b), 2 * 9 * 32 * got.numel(), BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        moved = nbytes(xt, got.to(dt), w.to(dt), b)
+        bd = bound(moved, 2 * 9 * 32 * got.numel(), BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
         print(f"K6 {name} {list(shape)}: max |diff| {err:.3e} ({tol}); kernel {t_k:.4f}/{t_k2:.4f} ms, "
               f"plain {t_plain:.4f}/{t_plain2:.4f} ms, library (F.conv2d {name} channels-last + F.silu) {t_lib:.4f} ms "
-              f"(max |diff| vs plain {lib_err:.3e}); bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-        res[name] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), **bd, "library_ms": t_lib}
+              f"(max |diff| vs plain {lib_err:.3e}); device time of the kernel {sum(dev_k):.4f} ms (torch.profiler) = "
+              f"{moved / sum(dev_k) / 1e9:.3f} TB/s of {HBM_BPS / 1e12} ; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        res[key] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), **bd, "library_ms": t_lib,
+                    "device_ms": sum(dev_k), "shape": list(shape)}
+        if shape[0] == 128:
+            # what this card's memory gives a plain copy that moves as many bytes (half read, half written)
+            src = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+            dst = torch.empty_like(src)
+            t_copy = min(cuda_ms(lambda: dst.copy_(src), n), cuda_ms(lambda: dst.copy_(src), n))
+            print(f"K6 yardstick: a device copy moving the same {moved / 1e6:.1f} MB takes {t_copy:.4f} ms = "
+                  f"{2 * src.numel() / t_copy / 1e9:.3f} TB/s; the kernel's device time is {sum(dev_k) / t_copy:.2f}x that")
+            res[key]["copy_ms"] = t_copy
     return res
 
 
@@ -900,6 +987,28 @@ def run_weights(dev, tmp, path, zones):
     return {"fps": fps, "rows": len(df), "launches": launches}
 
 
+def checkout_smoke(ap, root):
+    """The chip_smoke module of the checkout at `root` (a directory inside
+    this one), with that checkout's package first on the import path; None
+    (after a message) when there is no CUDA device."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.realpath(root)
+    if os.path.commonpath([root, here]) != here:
+        ap.error(f"--root must lie inside {here}")
+    import torch
+
+    if not torch.cuda.is_available():
+        print(f"chip_smoke {ap.description}: no CUDA device", file=sys.stderr)
+        return None
+    sys.path.insert(0, root)  # that checkout's package, before any import of it
+    spec = importlib.util.spec_from_file_location("chip_smoke_of_root", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
 def cli_ab(argv) -> int:
     """`python3 chip_smoke.py --cli-ab [--root DIR] [--repeat 3] [--frames 256]`:
     frames/s of the default CLI run alone, for comparing two checkouts on
@@ -913,27 +1022,19 @@ def cli_ab(argv) -> int:
     its own, all in one job on the card: the host's clock differs too much
     between jobs to compare across them."""
     import argparse
-    import importlib.util
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    ap = argparse.ArgumentParser(description="frames/s of the default CLI run of a checkout")
+    ap = argparse.ArgumentParser(description="--cli-ab: frames/s of the default CLI run of a checkout")
     ap.add_argument("--cli-ab", action="store_true")
-    ap.add_argument("--root", default=here)
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--frames", type=int, default=N_FRAMES)
     args = ap.parse_args(argv)
-    root = os.path.realpath(args.root)
-    if os.path.commonpath([root, here]) != here:
-        ap.error(f"--root must lie inside {here}")
+    cs = checkout_smoke(ap, args.root)
+    if cs is None:
+        return 2
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke --cli-ab: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, root)  # that checkout's package, before any import of it
-    spec = importlib.util.spec_from_file_location("chip_smoke_of_root", os.path.join(root, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    root = os.path.realpath(args.root)
     dev = torch.device("cuda", 0)
     fps, launches = [], None
     with tempfile.TemporaryDirectory() as tmp:
@@ -952,9 +1053,42 @@ def cli_ab(argv) -> int:
     return 0
 
 
+def kernel_ab(argv) -> int:
+    """`python3 chip_smoke.py --kernel-ab [--root DIR]`: the K7, K1 and K6
+    checks of the checkout at DIR alone (default: this checkout; DIR as for
+    --cli-ab), with that checkout's own chip_smoke.py, package and kernel
+    build, and one JSON line of their numbers. For holding two checkouts'
+    kernels against each other on one card: one process per checkout and
+    turn (parent, change, change, parent), all in one job."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="--kernel-ab: the K7, K1 and K6 checks of a checkout")
+    ap.add_argument("--kernel-ab", action="store_true")
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    args = ap.parse_args(argv)
+    cs = checkout_smoke(ap, args.root)
+    if cs is None:
+        return 2
+    import torch
+
+    from vehicle_counting_tpu_torch import _build
+    from vehicle_counting_tpu_torch.utils.device import card_line
+
+    dev = torch.device("cuda", 0)
+    _build.load_all(("crops", "conv_s2", "noop"))
+    for name in ("crops", "conv_s2", "noop"):
+        log = _build.BUILD_LOGS.get(name, "(cached)").splitlines()
+        print(f"built {name}: {[ln.strip() for ln in log if 'registers' in ln or 'spill' in ln][-4:]}")
+    k7, k1, k6 = cs.check_k7(dev), cs.check_k1(dev), cs.check_k6(dev)
+    print(json.dumps({"kernel_ab": {"root": os.path.realpath(args.root), "k1": k1, "k6": k6, "k7": k7, "card": card_line()}}))
+    return 0
+
+
 def main() -> int:
     if "--cli-ab" in sys.argv[1:]:
         return cli_ab(sys.argv[1:])
+    if "--kernel-ab" in sys.argv[1:]:
+        return kernel_ab(sys.argv[1:])
     try:
         import torch
     except ImportError as e:
@@ -1045,7 +1179,7 @@ def main() -> int:
              path="switched", **k5),
         dict(name="conv1_s2_silu", route="cuda", source="vehicle_counting_tpu_torch/csrc/conv_s2.cu",
              replaces="vehicle_counting_tpu/ops/pallas/conv_s2.py:181", launches=launches_k6,
-             path="layer-1 stand-alone", **k6["bfloat16"], f32=k6["float32"]),
+             path="layer-1 stand-alone", **k6["bfloat16"], edges=k6["bfloat16_edges"], f32=k6["float32"]),
         dict(name="noop_add1", route="cuda", source="vehicle_counting_tpu_torch/csrc/noop.cu",
              replaces="benchmarks/micro/noop_launch.py:14", path="launch-cost probe", **k7),
     ]

@@ -20,7 +20,7 @@ from jax.experimental import pallas as pl
 from test_torch_pipeline import _synthetic_video, fake_pipeline_batch_step
 from vehicle_counting_tpu_torch import bench, stage_bench
 from vehicle_counting_tpu_torch.benchmarks import load
-from vehicle_counting_tpu_torch.benchmarks.micro import noop_launch
+from vehicle_counting_tpu_torch.benchmarks.micro import conv_s2_alone, noop_launch
 from vehicle_counting_tpu_torch.configs import Config, config_from_dict, default_cam_config, default_config
 from vehicle_counting_tpu_torch.ops import noop
 from vehicle_counting_tpu_torch.pipeline import CountingPipeline
@@ -83,6 +83,17 @@ def test_launch_probe_runs_on_cpu():
     lines = buf.getvalue().splitlines()
     assert lines[0].startswith("cuda noop:") and lines[1].startswith("torch equiv:")
     assert json.loads(lines[-1])["noop_launch"]["iters"] == 256
+
+
+def test_conv_s2_alone_runs_on_cpu_and_refuses_cuda_without_a_card():
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        res = conv_s2_alone.main("cpu")
+    assert res["finite"] and res["kernel_ms"] is None and res["shape"] == [1, 32, 64, 32]
+    assert json.loads(buf.getvalue().splitlines()[-1])["conv_s2_alone"]["device"] == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            conv_s2_alone.main("cuda")
 
 
 # ---- devices ----------------------------------------------------------------
@@ -300,11 +311,11 @@ def _hand_made_trace(path):
 def test_own_kernels_are_read_from_the_sources():
     names = profile_summary.own_kernel_names()
     assert {"crop_gather_kernel", "cascade_kernel", "insert_rows_kernel", "reid_block_bf16", "reid_block_f32",
-            "conv1_s2_kernel", "noop_add1_kernel"} <= set(names)
+            "conv1_s2_bf16", "conv1_s2_f32", "noop_add1_kernel"} <= set(names)
     csrc = os.path.join(os.path.dirname(profile_summary.__file__), "..", "csrc")
     n_global = sum(open(os.path.join(csrc, f)).read().count("__global__") for f in os.listdir(csrc) if f.endswith(".cu"))
     assert len(names) == n_global  # every __global__ function is recognised
-    for traced in ("void conv1_s2_kernel<__nv_bfloat16>(__nv_bfloat16 const*, ...)", "reid_block_bf16(__nv_bfloat16 const*, ...)",
+    for traced in ("(anonymous namespace)::tc::conv1_s2_bf16(__nv_bfloat16 const*, ...)", "reid_block_bf16(__nv_bfloat16 const*, ...)",
                    "(anonymous namespace)::crop_gather_kernel(unsigned char const*, ...)"):
         assert profile_summary.category(profile_summary.DeviceEvent(traced, "kernel", 0, 1)) == "vct kernels (csrc/)"
     assert profile_summary.category(profile_summary.DeviceEvent("my_cascade_kernel_v2", "kernel", 0, 1)) != "vct kernels (csrc/)"

@@ -55,12 +55,48 @@ def test_shape_checks_match_the_tpu_kernel(shape):
         tcs.conv1_s2_silu(torch.zeros(shape), w, torch.zeros(64))
 
 
+def test_pack_conv1_weights_is_a_permutation_of_hwio():
+    """The bf16 kernel's packed slabs hold exactly the HWIO weights and
+    zeros for the tenth tap: a numpy restatement of what the kernel reads.
+    Slab s, row co, stored chunk c ^ (co % 8) holds k = 8 c .. 8 c + 8 of
+    that row, k = (tap % 2) * 32 + ci with tap = 2 s + k // 32."""
+    rng = np.random.default_rng(43)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 32, 64)).astype(np.float32))
+    packed = tcs.pack_conv1_weights(w)
+    assert packed.shape == (5, 64, 64) and packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    chunks = packed.view(torch.int16).numpy().reshape(5, 64, 8, 8)
+    want = w.to(torch.bfloat16).view(torch.int16).numpy().reshape(9, 32, 64)
+    seen = np.zeros((9, 32, 64), bool)
+    for s in range(5):
+        for co in range(64):
+            for c in range(8):
+                row = chunks[s, co, c ^ (co % 8)]
+                for e in range(8):
+                    k = 8 * c + e
+                    tap, ci = 2 * s + k // 32, k % 32
+                    if tap == 9:
+                        assert row[e] == 0
+                    else:
+                        assert row[e] == want[tap, ci, co]
+                        seen[tap, ci, co] = True
+    assert seen.all()
+
+
+def test_pack_index_is_built_once_per_device():
+    w = torch.zeros((3, 3, 32, 64))
+    tcs.pack_conv1_weights(w)
+    idx = tcs._PACK_INDEX[w.device]
+    tcs.pack_conv1_weights(w + 1)
+    assert tcs._PACK_INDEX[w.device] is idx and idx.numel() == 5 * 64 * 64
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the conv kernel is CUDA C++ with no CPU mode")
     torch.backends.cudnn.allow_tf32 = False  # the plain version's f32 conv
-    for shape, dt, tol in (((2, 64, 128, 32), torch.float32, TOL), ((4, 192, 320, 32), torch.bfloat16, TOL_BF16)):
+    for shape, dt, tol in (((2, 64, 128, 32), torch.float32, TOL), ((4, 192, 320, 32), torch.bfloat16, TOL_BF16),
+                           ((3, 64, 128, 32), torch.bfloat16, TOL_BF16), ((1, 32, 64, 32), torch.bfloat16, TOL_BF16)):
         x, p = _inputs(42, shape)
         w, b = (t.cuda() for t in conv1_s2_from_jax(p))
         xt = torch.from_numpy(x).to(dt).cuda()

@@ -19,7 +19,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple, Union
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "kernels")
@@ -117,6 +117,37 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_target(name)[1])
         _LIBS[name] = lib
         return lib
+
+
+_ENTRIES: Dict[Tuple[object, str], tuple] = {}
+
+
+def entry(lib: Union[str, ctypes.CDLL], symbol: str, argtypes: Sequence):
+    """The C entry point `symbol` of `lib` (a kernel's name for `load`, or a
+    loaded library), returning `int` (a cudaError_t) and taking `argtypes`.
+    The function is resolved and its types are set at the first call only;
+    later calls return the same object, so a launch pays one dict lookup."""
+    key = (lib if isinstance(lib, str) else id(lib), symbol)
+    hit = _ENTRIES.get(key)
+    if hit is None:
+        handle = load(lib) if isinstance(lib, str) else lib
+        fn = getattr(handle, symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        hit = _ENTRIES[key] = (fn, handle)  # the handle stays alive with its id
+    return hit[0]
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current CUDA stream on `device`, for a
+    C entry point's `stream` argument. Through the raw getter where this
+    PyTorch has it: no Stream object is built on the launch path."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(rc: int, what: str) -> None:

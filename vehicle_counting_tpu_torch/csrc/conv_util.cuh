@@ -1,23 +1,12 @@
-// Element helpers shared by the direct-convolution kernels (reid_block.cu,
-// conv_s2.cu): f32 <-> compute-dtype conversion and 8-wide vector loads
-// and stores of consecutive channels (16-byte aligned for bf16, 32 for f32).
+// Element helpers shared by the direct-convolution (f32 parity) kernels of
+// reid_block.cu and conv_s2.cu: 8-wide vector loads and stores of
+// consecutive channels (32-byte aligned).
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace vct_conv {
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 
 // w[0..8) <- p[0..8), read-only path
 __device__ __forceinline__ void load8(const float* p, float w[8]) {
@@ -27,29 +16,10 @@ __device__ __forceinline__ void load8(const float* p, float w[8]) {
   w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float w[8]) {
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    w[2 * i] = f.x;
-    w[2 * i + 1] = f.y;
-  }
-}
-
-// p[0..8) <- v[0..8) rounded to the compute dtype
+// p[0..8) <- v[0..8)
 __device__ __forceinline__ void store8(float* p, const float v[8]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
-  uint4 r;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = r;
 }
 
 }  // namespace vct_conv

@@ -33,6 +33,9 @@ def insert_rows_plain(costs: torch.Tensor, n_ins: torch.Tensor) -> torch.Tensor:
     return out
 
 
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
 def _launch(costs: torch.Tensor, n_ins: torch.Tensor) -> torch.Tensor:
     """Check the operands and launch the CUDA kernel: one block per problem."""
     if costs.dim() != 3 or costs.shape[1] != costs.shape[2]:
@@ -47,12 +50,8 @@ def _launch(costs: torch.Tensor, n_ins: torch.Tensor) -> torch.Tensor:
     costs = costs.contiguous()
     n = n_ins.to(torch.int32).contiguous()
     out = torch.empty((c, s + 1), dtype=torch.int32, device=costs.device)
-    fn = _build.load("assignment").vct_insert_rows
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    rc = fn(costs.data_ptr(), n.data_ptr(), c, s, out.data_ptr(),
-            torch.cuda.current_stream(costs.device).cuda_stream)
+    fn = _build.entry("assignment", "vct_insert_rows", _ARGTYPES)
+    rc = fn(costs.data_ptr(), n.data_ptr(), c, s, out.data_ptr(), _build.current_stream(costs.device))
     _build.check(rc, "assignment kernel")
     return out
 

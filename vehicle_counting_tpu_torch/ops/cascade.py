@@ -129,6 +129,12 @@ def _cascade_plain(gated_c, iou_c, lvl_of, tentative, row_key, iou_key,
     return det_free, det_key, out_row
 
 
+_ARGTYPES = (
+    [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_float] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+)
+
+
 def _launch(gated_c, iou_c, lvl_of, tentative, row_key, iou_key, det_valid,
             det_order, max_dist, max_iou, max_age):
     """Check the operands and launch the CUDA kernel: one block per class."""
@@ -151,20 +157,14 @@ def _launch(gated_c, iou_c, lvl_of, tentative, row_key, iou_key, det_valid,
     gated_c = gated_c.contiguous()
     iou_c = iou_c.contiguous()
     out = torch.empty((3, c, k), dtype=torch.int32, device=dev)
-    lib = _build.load("cascade")
-    fn = lib.vct_cascade_match
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_float] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-    )
+    fn = _build.entry("cascade", "vct_cascade_match", _ARGTYPES)
     rc = fn(
         gated_c.data_ptr(), iou_c.data_ptr(), *(t.data_ptr() for t in ints),
         c, k,
         float(np.float32(max_dist)), float(np.float32(max_iou)),
         _clamp_value(max_dist), _clamp_value(max_iou), int(max_age),
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _build.current_stream(dev),
     )
     _build.check(rc, "cascade association kernel")
     return out[1] != 0, out[2], out[0]  # det_free, det_key, out_row

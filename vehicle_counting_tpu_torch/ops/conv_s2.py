@@ -8,12 +8,15 @@ detector does not call it (its layer 1 stays `models/layers.py::conv_block`).
 Contract: x [B, H, W, 32] (the JAX layout, NHWC), w HWIO [3, 3, 32, 64],
 b [64]; H % 32 == 0 and W % 64 == 0. Conv operands in x.dtype (bf16 or
 f32) accumulated in f32, bias and SiLU in f32, output [B, H/2, W/2, 64]
-in x.dtype.
+in x.dtype. The bf16 kernel runs on the tensor cores and takes its weights
+packed per call by `pack_conv1_weights`; the f32 kernel (a parity mode on
+the CUDA cores) takes HWIO.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -42,25 +45,65 @@ def conv1_s2_silu_plain(x, w, b):
     return F.silu(y).to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
+N_SLABS = 5  # the 9 taps in pairs; the tenth half is zeros
+
+_PACK_INDEX: Dict[torch.device, torch.Tensor] = {}
+
+
+def _pack_index(device: torch.device) -> torch.Tensor:
+    """For each element of the packed layout, its flat index in the HWIO
+    weights with one zero appended (index 9 * 32 * 64: the tenth tap);
+    built once per device."""
+    idx = _PACK_INDEX.get(device)
+    if idx is None:
+        slab, co, chunk, e = torch.meshgrid(*(torch.arange(n) for n in (N_SLABS, COUT, 8, 8)), indexing="ij")
+        k = (chunk ^ (co % 8)) * 8 + e
+        tap, ci = 2 * slab + k // CIN, k % CIN
+        flat = torch.where(tap < 9, (tap * CIN + ci) * COUT + co, 9 * CIN * COUT)
+        idx = _PACK_INDEX[device] = flat.reshape(-1).to(device)
+    return idx
+
+
+def pack_conv1_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO [3, 3, 32, 64] -> the bf16 kernel's [5 slabs, 64 co, 64 k] bf16:
+    slab s holds taps 2s and 2s + 1 K-major (k = (tap % 2) * 32 + ci; the
+    tenth tap is zeros), each 128-byte row (one co) in the tensor cores'
+    128-byte swizzle, i.e. the 8 k of chunk c at chunk c ^ (co % 8)."""
+    flat = torch.cat([w.reshape(-1), w.new_zeros(1)])
+    return flat[_pack_index(w.device)].to(torch.bfloat16).view(N_SLABS, COUT, 64)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _launch_kernel(x, wk, bias):
+    """The C entry point on checked operands: x contiguous (16-byte aligned
+    for bf16), wk the weights as the kernel takes them (packed for bf16,
+    HWIO f32 otherwise), bias f32."""
+    bsz, h, wd, _ = x.shape
+    out = torch.empty((bsz, h // 2, wd // 2, COUT), dtype=x.dtype, device=x.device)
+    fn = _build.entry("conv_s2", "vct_conv1_s2_silu", _ARGTYPES)
+    rc = fn(x.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz, h, wd,
+            int(x.dtype == torch.bfloat16), _build.current_stream(x.device))
+    _build.check(rc, "layer-1 conv kernel")
+    return out
+
+
 def _launch(x, w, b):
-    """Check the operands and launch the CUDA kernel."""
+    """Check the operands, bring them into the kernel's form and launch it."""
     _check_shapes(x, w)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if w.device != x.device or b.device != x.device or tuple(b.shape) != (COUT,):
         raise ValueError(f"w and b [{COUT}] must be on {x.device}")
-    bsz, h, wd, _ = x.shape
     x = x.contiguous()
-    w = w.to(x.dtype).contiguous()
-    bias = b.float().contiguous()
-    out = torch.empty((bsz, h // 2, wd // 2, COUT), dtype=x.dtype, device=x.device)
-    fn = _build.load("conv_s2").vct_conv1_s2_silu
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz, h, wd,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "layer-1 conv kernel")
-    return out
+    if x.dtype == torch.bfloat16:
+        w = pack_conv1_weights(w)
+        if x.data_ptr() % 16:  # the kernel copies 16 bytes at a time
+            x = x.clone()
+    else:
+        w = w.float().contiguous()
+    return _launch_kernel(x, w, b.float().contiguous())
 
 
 def conv1_s2_silu(x, w, b):

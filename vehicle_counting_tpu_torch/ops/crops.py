@@ -120,45 +120,52 @@ def _check_cuda_args(frames_planar, frame_idx, boxes_xyxy, valid):
             raise ValueError(f"all tensors must be on {dev}, got {t.device}")
 
 
+_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 6 + [ctypes.c_void_p] * 3
+)
+_NORM = tuple(float(v) for v in (*_MEAN, *_STD))
+
+
+def _launch(frames_planar, frame_idx, boxes_xyxy, valid, staged_count=None):
+    """Check the operands and launch the CUDA kernel: one `torch.empty` and
+    one launch, no other device op (for contiguous operands). The kernel
+    computes `crop_boxes_to_bounds` and `_bilinear_coords` itself, reads
+    `frame_idx` as int32 or int64 and `valid` as bytes. `staged_count`, a
+    zeroed int32 tensor on the device, receives the number of crops whose
+    source band was staged in shared memory (the others read their taps
+    from global memory); for checks."""
+    _check_cuda_args(frames_planar, frame_idx, boxes_xyxy, valid)
+    b, _, h, w = frames_planar.shape
+    d = frame_idx.shape[0]
+    frame_idx, boxes_xyxy, valid = frame_idx.contiguous(), boxes_xyxy.contiguous(), valid.contiguous()
+    out = torch.empty((d, CROP_SIZE, CROP_SIZE, 3), dtype=torch.float32, device=frames_planar.device)
+    fn = _build.entry("crops", "vct_crop_gather", _ARGTYPES)
+    rc = fn(
+        frames_planar.data_ptr(), b, h, w, frame_idx.data_ptr(), int(frame_idx.dtype == torch.int64),
+        boxes_xyxy.data_ptr(), valid.data_ptr(), d, *_NORM, out.data_ptr(),
+        None if staged_count is None else staged_count.data_ptr(),
+        _build.current_stream(frames_planar.device),
+    )
+    _build.check(rc, "crop gather kernel")
+    return out
+
+
 def gather_crops_batch(frames_planar: torch.Tensor, frame_idx: torch.Tensor,
                        boxes_xyxy: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """K1: normalised [D, 50, 50, 3] f32 crops, each from its own frame.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel of
-    `csrc/crops.cu` (array-equal to the plain version) or raise.
+    `csrc/crops.cu` (array-equal to the plain version) or raise. Boxes must
+    be finite and within +-2^31 (the pipeline clamps them to the frame
+    upstream): the kernel converts float to int as CUDA does, saturating,
+    and nothing on the device checks for it.
     """
     if frames_planar.device.type == "cpu":
         return gather_crops_batch_plain(frames_planar, frame_idx, boxes_xyxy, valid)
     if frames_planar.device.type != "cuda":
         raise ValueError(f"unsupported device {frames_planar.device}")
-    _check_cuda_args(frames_planar, frame_idx, boxes_xyxy, valid)
-    b, _, h, w = frames_planar.shape
-    d = frame_idx.shape[0]
-    # the coordinate math stays outside the kernel, as in the TPU version
-    y0c, y1c, fy, x0c, x1c, fx = (
-        t.contiguous() for t in _bilinear_coords(boxes_xyxy, h, w, (CROP_SIZE, CROP_SIZE))
-    )
-    fidx = frame_idx.to(torch.int32).contiguous()
-    vmask = valid.contiguous()
-    out = torch.empty((d, CROP_SIZE, CROP_SIZE, 3), dtype=torch.float32, device=frames_planar.device)
-    lib = _build.load("crops")
-    fn = lib.vct_crop_gather
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        + [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_float] * 6
-        + [ctypes.c_void_p, ctypes.c_void_p]
-    )
-    stream = torch.cuda.current_stream(frames_planar.device).cuda_stream
-    rc = fn(
-        frames_planar.data_ptr(), b, h, w, fidx.data_ptr(),
-        y0c.data_ptr(), y1c.data_ptr(), fy.data_ptr(),
-        x0c.data_ptr(), x1c.data_ptr(), fx.data_ptr(),
-        vmask.data_ptr(), d,
-        *(float(m) for m in _MEAN), *(float(s) for s in _STD),
-        out.data_ptr(), stream,
-    )
-    _build.check(rc, "crop gather kernel")
+    out = _launch(frames_planar, frame_idx, boxes_xyxy, valid)
     gather_crops_batch.launches += 1
     return out
 

@@ -20,11 +20,11 @@ def noop_add1_plain(x: torch.Tensor) -> torch.Tensor:
     return x + 1.0
 
 
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+
 def _entry():
-    fn = _build.load("noop").vct_noop_add1
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    return fn
+    return _build.entry("noop", "vct_noop_add1", _ARGTYPES)
 
 
 def noop_add1(x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +42,7 @@ def noop_add1(x: torch.Tensor) -> torch.Tensor:
     if x.numel() >= 2 ** 31:
         raise ValueError(f"x has {x.numel()} elements; the kernel indexes with int32")
     out = torch.empty_like(x)
-    rc = _entry()(x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _entry()(x.data_ptr(), out.data_ptr(), x.numel(), _build.current_stream(x.device))
     _build.check(rc, "noop kernel")
     noop_add1.launches += 1
     return out
@@ -60,7 +60,7 @@ def bare_launcher(buf: torch.Tensor):
     if buf.device.type != "cuda":
         raise ValueError(f"bare_launcher needs a CUDA tensor, got {buf.device}")
     fn, p = _entry(), buf.data_ptr()
-    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    stream = _build.current_stream(buf.device)
 
     def launch(_keep=buf):  # the closure keeps the buffer alive while launches may use its pointer
         _build.check(fn(p, p, 0, stream), "noop kernel (n=0)")

@@ -79,6 +79,9 @@ def reid_block64_plain(x, w1, w2, a1, b1, a2, b2):
     return torch.relu(y).to(x.dtype)
 
 
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
 def _launch(x, w1, w2, a1, b1, a2, b2):
     """Check the operands and launch the CUDA kernel."""
     if x.dim() != 4 or tuple(x.shape[1:]) != (C, S, S):
@@ -103,12 +106,9 @@ def _launch(x, w1, w2, a1, b1, a2, b2):
         # the f32 tiles do not both fit in shared memory: x is read zero-padded from global
         xpad = F.pad(x, (1, 1, 1, 1))
     out = torch.empty_like(x)
-    fn = _build.load("reid_block").vct_reid_block64
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = _build.entry("reid_block", "vct_reid_block64", _ARGTYPES)
     rc = fn(x.data_ptr(), None if xpad is None else xpad.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            ab.data_ptr(), out.data_ptr(), x.shape[0], int(bf16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            ab.data_ptr(), out.data_ptr(), x.shape[0], int(bf16), _build.current_stream(x.device))
     _build.check(rc, "reid block kernel")
     return out
 
