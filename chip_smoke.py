@@ -15,10 +15,17 @@ Phases, each fatal on failure:
             direct, must run) and stage_bench's single call over 3840
             crops; device kernels per call (exactly one) and device time;
   K2        association kernel (and its per-class entry K3) vs the plain
-            version, bitwise, at C=4, K=64, max_age=30 (random, tie, empty);
+            version, bitwise on all four outputs, at C=4, K=64, max_age=30
+            (random, tie, empty, steady) and as a node of a captured CUDA
+            graph; ms per launch eager and as a graph node; the kernel's
+            clock64 split; then past the tracker's routing gates: K = 320
+            and detection keys >= 2^23 (K = 1023 where the kernel's
+            registers allow 1024 threads);
   K4        batched assignment kernel vs its plain version, bitwise, on 300
             clamp-tie problems at S=64 (one launch), a [4, 64, 64] batch and
-            S=256; alone and inside the batched transpose rule;
+            S=256; alone and inside the batched transpose rule; its fused
+            matching stage vs the plain stage on 306 masked stages (normal,
+            flipped, empty, all-rejected, keys >= 2^22, K = 64 and 320);
   K5        fused ReID stage-1 block vs its plain version: bf16 at N=128
             (the embed's launch) and N=3840 (128 frames x 30), with cuDNN's
             bf16 block timed beside them, batch invariance (bitwise), f32
@@ -36,10 +43,16 @@ Phases, each fatal on failure:
   pipeline  the CLI main path on a synthetic 256-frame 1280x720 video:
             yolov5s random init, default config (detect_batch 128, bf16),
             a calibrated min_conf and a 4-class mapping; asserts the CSV and
-            MP4 and that both of its kernels (K1, K2) were launched;
+            MP4 and that both of its kernels (K1, K2) were launched, K2 once
+            per frame (the tracker's frame step is replayed from a CUDA
+            graph); then the same run with the graph off, off and on: equal
+            CSV rows, frames/s of each;
   switched  the CLI on the first 128 frames with FORCE_PALLAS_REID_BLOCK=1
             and the staged association forced: CSV and MP4 written, K1, K4
             and K5 launched; its track count beside the default run's;
+  compacted K4's compacted insertion where the port still launches it: the
+            staged association's stage in its compacting form, 31 stages of
+            a [4, 64, 64] frame, held against the fused stage's chain;
   layer-1   K6's stand-alone path (no detector calls it, as in the JAX
             package): yolov5s layer 0 on 128 frames, then K6 as layer 1,
             held against the detector's own layer 1;
@@ -47,6 +60,12 @@ Phases, each fatal on failure:
             versions): detections and track ids equal; then the same step
             on the card through the staged route (K4) vs the K2 route:
             track ids, mask and boxes equal;
+  graph     the frame graph vs the eager loop on the card over the 256-frame
+            video, both association routes: every tracker state leaf and
+            output bitwise-equal; the K2 / K4 kernels one replay shows in
+            the card's trace against the counts the runner adds per replay;
+            then `tracker_scan` at B=128 in steady state with the graph
+            off / on / on / off, ms/frame;
   stage     stage_bench at B=128 (reid bf16, chunks of 128), every stage;
   bench     bench with a short budget; its metric line is parsed;
   profile   the CLI with --profile on 128 frames, then profile_summary on
@@ -193,16 +212,53 @@ def check_k1(dev):
     return {**res[d], "d3840": res[3840]}
 
 
-def check_k2(dev):
+def graph_node_ms(launch, n=50, reps=5):
+    """ms per launch when `launch` is a node of a captured CUDA graph: n
+    launches captured once, the graph replayed reps times between CUDA
+    events (after a warm-up launch and replay). The host pays one replay
+    for the n nodes, so this is the device's time per launch."""
     import torch
 
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    return cuda_ms(graph.replay, reps) / n
+
+
+def check_k2(dev):
+    """K2 and its per-class entry K3 against the plain version, bitwise, on
+    all four outputs (det_free as bool bytes, det_key, out_row, track_col);
+    the same launch as a node of a captured CUDA graph gives the same
+    bytes; ms per launch eager and as a graph node; the kernel's clock64
+    split on the timed problem. Then past the routing's gates, where the
+    tracker takes the staged route: K = 320 with detection keys >= 2^23,
+    and K = 1023 where the kernel's registers allow 1024 threads."""
+    import torch
+
+    from vehicle_counting_tpu_torch import _build
     from vehicle_counting_tpu_torch.ops import cascade
     from vehicle_counting_tpu_torch.testing import association_problem
 
     names = ["gated", "iou", "lvl_of", "tentative", "track_id", "iou_order", "det_valid", "det_order"]
     rng = np.random.default_rng(SEED + 1)
     n_cases, t_plain, err = 0, [], 0
-    for kind in ("random", "ties", "empty"):
+
+    def compare(got_list, want, what):
+        e = 0
+        for field, w in zip(want._fields, want):
+            for got in got_list:
+                g = getattr(got, field)
+                if g.dtype != w.dtype:
+                    raise AssertionError(f"K2 {field}: dtype {g.dtype}, plain {w.dtype}")
+                e = max(e, int((g.cpu().to(torch.int64) - w.to(torch.int64)).abs().max()))
+        if e:
+            raise AssertionError(f"K2/K3 kernel differs from the plain version ({what}): max |diff| {e}")
+        return e
+
+    for kind in ("random", "ties", "empty", "steady"):
         for _ in range(8):
             pr = association_problem(rng, 4, 64, 30, kind)
             cpu = [torch.from_numpy(pr[n]) for n in names]
@@ -213,31 +269,94 @@ def check_k2(dev):
             t0 = time.perf_counter()
             want = cascade.cascade_match_classparallel(*cpu, 0.2, 0.6, max_age=30)
             t_plain.append((time.perf_counter() - t0) * 1e3)
-            for x, y, z in zip(a, b, want):
-                z = z.to(torch.int64)
-                for got in (x.cpu().to(torch.int64), y.cpu().to(torch.int64)):
-                    err = max(err, int((got - z).abs().max()))
-            if err:
-                raise AssertionError(f"K2/K3 kernel differs from the plain version ({kind} case): max |diff| {err}")
+            err = max(err, compare((a, b), want, f"{kind} case"))
             n_cases += 1
     pr = association_problem(np.random.default_rng(SEED + 2), 4, 64, 30, "random")
     gpu = [torch.from_numpy(pr[n]).to(dev) for n in names]
-    t_k = cuda_ms(lambda: cascade.cascade_match_classparallel(*gpu, 0.2, 0.6, max_age=30), 50)
-    # the timed problem: every operand once, three [C, K] outputs; each
+
+    def eager():
+        return cascade.cascade_match_classparallel(*gpu, 0.2, 0.6, max_age=30)
+
+    # the launch as a graph node: same bytes as the eager launch
+    want = [t.clone() for t in eager()]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        node_out = eager()
+    for t in node_out:
+        t.fill_(1)  # stale bytes: the replay must overwrite them all
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(node_out, want)):
+        raise AssertionError("K2 launched as a graph node differs from the eager launch")
+    t_k = cuda_ms(eager, 50)
+    t_node = graph_node_ms(eager)
+    t_k2 = cuda_ms(eager, 50)
+    split = cascade.cascade_clock_split(*gpu, 0.2, 0.6, max_age=30)
+    total = max(split["total"], 1)
+    share = {k: round(v / total, 4) for k, v in split.items() if k not in ("total", "stages")}
+    # a steady frame's problem: 8 tracks and 8 detections per class, one stage + the IoU stage
+    pr = association_problem(np.random.default_rng(SEED + 20), 4, 64, 30, "steady")
+    sgpu = [torch.from_numpy(pr[n]).to(dev) for n in names]
+
+    def steady_launch():
+        return cascade.cascade_match_classparallel(*sgpu, 0.2, 0.6, max_age=30)
+
+    steady = {"ms": min(cuda_ms(steady_launch, 50), cuda_ms(steady_launch, 50)), "graph_node_ms": graph_node_ms(steady_launch),
+              "clock_split": cascade.cascade_clock_split(*sgpu, 0.2, 0.6, max_age=30)}
+    stotal = max(steady["clock_split"]["total"], 1)
+    steady["clock_share"] = {k: round(v / stotal, 4) for k, v in steady["clock_split"].items()
+                             if k not in ("total", "stages")}
+    # the timed problem: every operand once, four [C, K] outputs; each
     # valid detection's row insertion scans at most K columns K times
-    outs = cascade.cascade_match_classparallel(*gpu, 0.2, 0.6, max_age=30)
+    outs = eager()
     bd = bound(nbytes(*gpu, *outs), 2 * int(gpu[6].sum()) * 64 * 64, F32_FLOPS)
-    print(f"K2/K3 bitwise-equal on {n_cases} [4, 64] problems; kernel {t_k:.4f} ms, "
-          f"plain (host CPU) median {np.median(t_plain):.2f} ms; bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}): "
-          f"a dependent chain inside one launch, so the launch floor (K7) is its real bound")
-    return {"max_abs_err": float(err), "ms": t_k, "plain_ms": float(np.median(t_plain)), **bd, "library_ms": None}
+    print(f"K2/K3 bitwise-equal on {n_cases} [4, 64] problems (det_free bool, det_key, out_row, track_col; as a graph "
+          f"node too); per launch: eager wrapper {t_k:.4f}/{t_k2:.4f} ms, graph node {t_node:.4f} ms; plain (host CPU) "
+          f"median {np.median(t_plain):.2f} ms; bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}): a dependent chain "
+          f"inside one launch, so the launch floor (K7) is its real bound")
+    print(f"K2 clock64 split of the timed problem (thread 0's ticks summed over the 4 classes, {split['stages']} "
+          f"non-empty stages): {split}; shares of the total {share}; x graph node time = "
+          f"{ {k: round(v * t_node * 1e3, 2) for k, v in share.items()} } us")
+    print(f"K2 on a steady frame's problem (8 tracks and 8 detections per class): eager wrapper "
+          f"{steady['ms']:.4f} ms, graph node {steady['graph_node_ms']:.4f} ms; clock64 split "
+          f"{steady['clock_split']}, shares {steady['clock_share']}")
+
+    # past the routing's gates (2^22 keys, 256 slots): the kernel ranks its
+    # keys before packing them and holds one slot per thread
+    max_threads = _build.entry("cascade", "vct_cascade_max_threads", [])()
+    wide = {"max_threads": max_threads, "cases": []}
+    shapes = [(4, 320, 4, "random"), (4, 320, 4, "ties"), (2, 320, 30, "steady")]
+    if max_threads >= 1024:
+        shapes.append((2, 1023, 4, "steady"))
+    for c, k, max_age, kind in shapes:
+        pr = association_problem(rng, c, k, max_age, kind)
+        pr["det_order"] = pr["det_order"] + (1 << 23)
+        cpu = [torch.from_numpy(pr[n]) for n in names]
+        wgpu = [x.to(dev) for x in cpu]
+        got = cascade.cascade_match_classparallel(*wgpu, 0.2, 0.6, max_age=max_age)
+        torch.cuda.synchronize()
+        compare((got,), cascade.cascade_match_classparallel(*cpu, 0.2, 0.6, max_age=max_age), f"K = {k}, {kind}, wide keys")
+        ms = cuda_ms(lambda: cascade.cascade_match_classparallel(*wgpu, 0.2, 0.6, max_age=max_age), 10)
+        wide["cases"].append({"c": c, "k": k, "kind": kind, "matched": int((got.track_col >= 0).sum()), "ms": ms})
+    print(f"K2 past the routing's gates, bitwise-equal to the plain version with det keys >= 2^23: {wide['cases']}; "
+          f"the kernel's blocks can hold {max_threads} threads (K + 1 rounded up to a warp), so K <= "
+          f"{min(max_threads, 1024) - 1} launches")
+    return {"max_abs_err": float(err), "ms": min(t_k, t_k2), "graph_node_ms": t_node,
+            "plain_ms": float(np.median(t_plain)), **bd, "library_ms": None, "clock_split": split,
+            "clock_share": share, "steady": steady, "past_gates": wide}
 
 
 def check_k4(dev):
+    """K4's two entries against their plain versions, bitwise: the
+    compacted insertion (insert_rows, alone and inside the transpose rule)
+    and the fused matching stage (match_stage: 306 masked stages, normal,
+    flipped, empty and all-rejected, detection keys >= 2^22, K = 64 and
+    320), each timed on a [4, 64, 64] problem."""
     import torch
 
     from vehicle_counting_tpu_torch.ops import assignment
-    from vehicle_counting_tpu_torch.testing import clamp_tie_problems
+    from vehicle_counting_tpu_torch.testing import clamp_tie_problems, stage_problems
 
     rng = np.random.default_rng(SEED + 4)
     err, n_ok = 0, 0
@@ -266,7 +385,74 @@ def check_k4(dev):
     print(f"K4 bitwise-equal on {n_ok} problems (insert and transpose rule); [4, 64, 64] kernel {t_k:.4f} ms, "
           f"plain (host CPU) median {np.median(t_plain):.2f} ms; bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}): "
           f"a dependent chain inside one launch, so the launch floor (K7) is its real bound")
-    return {"max_abs_err": float(err), "ms": t_k, "plain_ms": float(np.median(t_plain)), **bd, "library_ms": None}
+    res = {"max_abs_err": float(err), "ms": t_k, "plain_ms": float(np.median(t_plain)), **bd, "library_ms": None}
+
+    # the fused stage: one launch per batch of stages, in place
+    def stage_args(pr, d):
+        return {k: (torch.from_numpy(v).to(d) if isinstance(v, np.ndarray) else v) for k, v in pr.items()}
+
+    serr, n_stage, kinds = 0, 0, collections.Counter()
+    for n, k, hi in ((300, 64, 40), (4, 64, 65), (2, 320, 321)):
+        pr = stage_problems(rng, n, k, hi)
+        nr_, nc_ = pr["rows"].sum(-1), pr["det_free"].sum(-1)
+        kinds.update(np.where((nr_ == 0) | (nc_ == 0), "empty", np.where(nr_ > nc_, "flipped", "normal")).tolist())
+        want = assignment.match_stage_batched(**stage_args(pr, "cpu"))
+        got = assignment.match_stage_batched(**stage_args(pr, dev))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype:
+                raise AssertionError(f"K4 match_stage: dtype {g.dtype}, plain {w.dtype}")
+            serr = max(serr, int((g.cpu().to(torch.int64) - w.to(torch.int64)).abs().max()))
+        if serr:
+            raise AssertionError(f"K4 match_stage differs from its plain version on [{n}, {k}, {k}]: max |diff| {serr}")
+        n_stage += n
+    pr = stage_problems(rng, 4, 64, 65)
+    pr["cost"][:] = np.random.default_rng(SEED + 40).uniform(0, 0.25, pr["cost"].shape)  # one in five rejected
+    base = stage_args(pr, dev)
+    state = ("det_free", "track_col", "det_key")  # what a launch updates in place
+    work = dict(base, **{name: base[name].clone() for name in state})
+    pool = []
+
+    def reset():
+        for name in state:
+            work[name].copy_(base[name])
+
+    def fused_node():  # in a graph the nodes run one after another: the three copies are taken off below
+        reset()
+        return assignment.match_stage_batched(**work)
+
+    def fused():  # eager: every launch on a fresh copy of the state, made before the clock starts
+        return assignment.match_stage_batched(**pool.pop())
+
+    def eager_ms(n=50):
+        pool[:] = [dict(base, **{name: base[name].clone() for name in state}) for _ in range(n + 1)]
+        return cuda_ms(fused, n)
+
+    def plain():  # the staged route's stage as it was: ~45 torch ops around insert_rows
+        return assignment.match_stage_plain(**base)
+
+    for g, w in zip(fused_node(), plain()):
+        if not torch.equal(g, w):
+            raise AssertionError("K4 match_stage differs from the plain stage run on the card")
+    t_plain_a = cuda_ms(plain, 20)
+    t_f, t_f2 = eager_ms(), eager_ms()
+    t_plain_b = cuda_ms(plain, 20)
+    t_node = graph_node_ms(fused_node) - graph_node_ms(reset)
+    empty = dict(base, rows=torch.zeros_like(base["rows"]))
+    t_empty = graph_node_ms(lambda: assignment.match_stage_batched(**empty))
+    live = int((pr["rows"].sum(-1) * pr["det_free"].sum(-1)).sum())
+    vec = nbytes(*(base[n] for n in ("rows", "det_free", "track_col", "row_order", "det_key", "stage_base")))
+    sbd = bound(4 * live + vec + nbytes(base["det_free"], base["track_col"], base["det_key"]),
+                2 * int(np.minimum(pr["rows"].sum(-1), pr["det_free"].sum(-1)).sum()) * 64 * 64, F32_FLOPS)
+    print(f"K4 match_stage bitwise-equal on {n_stage} stages ({dict(kinds)}; det keys >= 2^23; K = 64 and 320); "
+          f"[4, 64, 64] per launch: eager wrapper {t_f:.4f}/{t_f2:.4f} ms, graph node {t_node:.4f} ms "
+          f"(three copy nodes taken off), an empty stage as a graph node {t_empty:.4f} ms; the plain stage on the card "
+          f"(~45 torch ops + insert_rows) {t_plain_a:.4f}/{t_plain_b:.4f} ms; bound {sbd['bound_ms']:.6f} ms "
+          f"({sbd['bound_by']}) -> the launch floor")
+    res["match_stage"] = {"ok": True, "max_abs_err": float(serr), "ms": min(t_f, t_f2), "graph_node_ms": t_node,
+                          "empty_graph_node_ms": t_empty, "plain_ms": min(t_plain_a, t_plain_b), **sbd,
+                          "library_ms": None, "stages_checked": n_stage}
+    return res
 
 
 def check_k5(dev):
@@ -404,7 +590,8 @@ def device_events(fn):
     back from the trace file by tools/profile_summary. A capture does not
     record the launches of its first microseconds, so it opens with a
     throw-away op and the call sits in a named region: only device events
-    that start inside the region count."""
+    that start inside the region count. A trace that shows none is taken
+    again; the third empty one raises."""
     import torch
 
     from vehicle_counting_tpu_torch.tools.profile_summary import load_device_events
@@ -412,21 +599,25 @@ def device_events(fn):
 
     fn()
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        with trace(tmp) as t:
-            torch.zeros(8, device="cuda").add_(1.0)
-            torch.cuda.synchronize()
-            time.sleep(0.005)
-            with torch.profiler.record_function("vct_device_events_region"):
-                fn()
+    for _ in range(3):  # a trace now and then comes back without the region's device events: take another
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as t:
+                torch.zeros(8, device="cuda").add_(1.0)
                 torch.cuda.synchronize()
-        with open(t["path"]) as f:
-            data = json.load(f)
-        start = [float(e["ts"]) for e in (data["traceEvents"] if isinstance(data, dict) else data)
-                 if e.get("name") == "vct_device_events_region" and e.get("ph") == "X"]
-        if not start:
-            raise AssertionError("device_events: the trace holds no region marker")
-        return [(e.name, e.dur_us / 1e3) for e in load_device_events(t["path"]) if e.ts_us >= min(start)]
+                time.sleep(0.005)
+                with torch.profiler.record_function("vct_device_events_region"):
+                    fn()
+                    torch.cuda.synchronize()
+            with open(t["path"]) as f:
+                data = json.load(f)
+            start = [float(e["ts"]) for e in (data["traceEvents"] if isinstance(data, dict) else data)
+                     if e.get("name") == "vct_device_events_region" and e.get("ph") == "X"]
+            if not start:
+                raise AssertionError("device_events: the trace holds no region marker")
+            events = [(e.name, e.dur_us / 1e3) for e in load_device_events(t["path"]) if e.ts_us >= min(start)]
+        if events:
+            return events
+    raise AssertionError("device_events: three traces in a row show no device event inside the region")
 
 
 def check_k6(dev):
@@ -638,7 +829,8 @@ def kernel_counters():
     return {
         "crops": [crops.gather_crops_batch],
         "cascade": [cascade.cascade_match_classparallel, cascade.cascade_match_batched],
-        "assignment": [assignment.insert_rows_batched],
+        "insert_rows": [assignment.insert_rows_batched],
+        "match_stage": [assignment.match_stage_batched],
         "reid_block": [reid_block.reid_block64],
     }
 
@@ -698,6 +890,34 @@ def run_pipeline(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES, out="o
     return res["fps"], launches, df
 
 
+def run_cli_ab(dev, tmp, path, zones, conf, mapping, df_on, fps_on):
+    """The default CLI run again without the MP4 pass, with the frame graph
+    off, off and on (the phase before was on, and cold): every run's CSV
+    must hold the rows of the first (track id, frame, box, label), and the
+    eager runs must launch K2 as often. Returns {"on": [...], "off": [...]}
+    frames/s in the order run."""
+    from vehicle_counting_tpu_torch.pipeline import step as step_mod
+
+    cols = ["track_id", "frame_id", "box", "label"]
+    fps = {"on": [fps_on], "off": []}
+    old = step_mod.USE_FRAME_GRAPH
+    try:
+        for i, graph in enumerate((False, False, True)):
+            step_mod.USE_FRAME_GRAPH = None if graph else False
+            got, launches, df = run_pipeline(dev, tmp, path, zones, conf, mapping, N_FRAMES, f"out_ab{i}",
+                                             extra_args=("--no_visualize",))
+            if launches["cascade"] != N_FRAMES:
+                raise AssertionError(f"CLI with the frame graph {'on' if graph else 'off'}: {launches['cascade']} K2 launches")
+            if not df[cols].equals(df_on[cols]):
+                raise AssertionError(f"CLI with the frame graph {'on' if graph else 'off'}: CSV rows differ from the first run's")
+            fps["on" if graph else "off"].append(got)
+    finally:
+        step_mod.USE_FRAME_GRAPH = old
+    print(f"CLI frames/s, 256 frames: frame graph on {[round(v, 2) for v in fps['on']]} (the first cold, with the MP4 "
+          f"pass after it), off {[round(v, 2) for v in fps['off']]}; CSV rows equal in all four runs")
+    return fps
+
+
 def run_switched(dev, tmp, path, zones, conf, mapping):
     """The CLI on the first N_SWITCHED frames with the fused ReID block on
     (the environment switch both packages read) and the staged association
@@ -715,7 +935,7 @@ def run_switched(dev, tmp, path, zones, conf, mapping):
             os.environ.pop("FORCE_PALLAS_REID_BLOCK")
         else:
             os.environ["FORCE_PALLAS_REID_BLOCK"] = old_env
-    for name in ("crops", "assignment", "reid_block"):
+    for name in ("crops", "match_stage", "reid_block"):
         if launches[name] <= 0:
             raise AssertionError(f"the switched path never launched the {name} kernel")
     if launches["cascade"]:
@@ -759,12 +979,50 @@ def run_layer1_path(dev, path):
     return launches
 
 
+def run_compacted_stage_path(dev):
+    """K4's compacted insertion where the port still runs it on the card:
+    the staged association's stage in its compacting form
+    (`ops/assignment.py::match_stage_plain` on CUDA tensors: argsort, gather,
+    one `insert_rows` launch, scatter), chained over a frame's 31 stages at
+    the main path's [4, 64, 64], and held against the same chain through
+    the fused stage. The tracker's staged route launches the fused stage,
+    so this is a path of its own. Returns the `insert_rows` launches."""
+    import torch
+
+    from vehicle_counting_tpu_torch.ops import assignment
+    from vehicle_counting_tpu_torch.testing import stage_problems
+
+    rng = np.random.default_rng(SEED + 41)
+    pr = stage_problems(rng, 4, 64, 65)
+    pr["cost"][:] = rng.uniform(0, 0.25, pr["cost"].shape)
+    t = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v) for k, v in pr.items()}
+    rows = torch.from_numpy(rng.uniform(0, 1, (31, 4, 64)) < 0.08).to(dev)
+    assignment.insert_rows_batched.launches = 0
+    plain = fused = (t["det_free"], t["track_col"], t["det_key"])
+    fused = tuple(x.clone() for x in fused)
+    for i in range(31):
+        base = torch.full((4,), i + 1, dtype=torch.int32, device=dev)
+        plain = assignment.match_stage_plain(t["cost"], rows[i], *plain[:2], 0.2, t["row_order"], plain[2], base)
+        fused = assignment.match_stage_batched(t["cost"], rows[i], *fused[:2], 0.2, t["row_order"], fused[2], base)
+    torch.cuda.synchronize()
+    launches = assignment.insert_rows_batched.launches
+    for name, a, b in zip(("det_free", "track_col", "det_key"), plain, fused):
+        if not torch.equal(a, b):
+            raise AssertionError(f"compacted stage chain differs from the fused stage chain: {name}")
+    print(f"compacted stage on the card: 31 stages of a [4, 64, 64] frame, {launches} insert_rows launches, "
+          f"{int((plain[1] >= 0).sum())} tracks matched; equal to the fused stage's chain")
+    if launches <= 0:
+        raise AssertionError("the compacted stage never launched the insert_rows kernel")
+    return launches
+
+
 def check_parity(dev, path):
-    """One f32 step (B=16, yolov5s, K=64) on the card vs the CPU; the
+    """One f32 step (B=16, yolov5s, K=64) on the card (the tracker's frame
+    step replayed from its CUDA graph) vs the CPU (the plain loop); the
     threshold sits in a gap of the CPU scores so neither side is near it.
-    Then the card's step through the staged route (K4) vs the K2 route,
-    and both routes' tracker time per frame on the step's detections.
-    Returns that timing."""
+    Then the card's step through the staged route (K4's fused stage) vs the
+    K2 route, and both routes' tracker time per frame on the step's
+    detections. Returns that timing."""
     import torch
 
     from vehicle_counting_tpu_torch.ops import assignment
@@ -833,10 +1091,10 @@ def check_parity(dev, path):
     old = tracker.FORCE_CASCADE_KERNEL
     tracker.FORCE_CASCADE_KERNEL = False
     try:
-        assignment.insert_rows_batched.launches = 0
+        assignment.match_stage_batched.launches = 0
         det_s, tout_s = step(dev)
         torch.cuda.synchronize()
-        k4 = assignment.insert_rows_batched.launches
+        k4 = assignment.match_stage_batched.launches
     finally:
         tracker.FORCE_CASCADE_KERNEL = old
     if k4 <= 0:
@@ -874,6 +1132,139 @@ def check_parity(dev, path):
         t["staged" if staged else "k2"].append(scan_ms(staged))
     print(f"tracker ms/frame (B={b}, f32, host clock): K2 route {t['k2']}, staged route {t['staged']}")
     return t
+
+
+def check_frame_graph(dev, path, conf, mapping):
+    """The frame scan replayed from its CUDA graph against the eager loop,
+    on the card, over the 256-frame smoke video (the CLI's default config:
+    bf16, B=128, the calibrated threshold and class map), on both
+    association routes: every `TrackerState` leaf and every output
+    bitwise-equal after each batch; the two routes equal on the discrete
+    outputs. Then the tracker A/B: `tracker_scan` on the second batch
+    (B=128, the state warmed by the first: steady state), graph off / on /
+    on / off, ms/frame. Returns the A/B times and the launch counts."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.detector import class_lut
+    from vehicle_counting_tpu_torch.models.reid import cast_conv_weights, init_reid
+    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params, init_yolov5
+    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, host_letterbox_yuv420
+    from vehicle_counting_tpu_torch.pipeline import step as step_mod
+    from vehicle_counting_tpu_torch.tracking import graph as graph_mod
+    from vehicle_counting_tpu_torch.tracking import tracker
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams, TrackerState
+
+    b = 128
+    net = autoshape_hw(SRC_HW, 640)
+    cfg = YoloConfig(VARIANT, 80)
+    yp = cast_params(init_yolov5(torch.Generator().manual_seed(0), cfg, dev), torch.bfloat16)
+    rp, rs = init_reid(torch.Generator().manual_seed(1), device=dev)
+    rp = cast_conv_weights(rp, torch.bfloat16)
+    lut = torch.from_numpy(class_lut(80, mapping)).to(dev)
+    hp = DeepSortParams(tracker=TrackerParams(feat_dtype="bfloat16"), num_classes=len(mapping))
+    frames = first_batch(path, N_FRAMES)
+    batches = []
+    with torch.no_grad():
+        for i in range(0, N_FRAMES, b):
+            yuv = torch.from_numpy(host_letterbox_yuv420(frames[i : i + b], net, content_only=True)).to(dev)
+            batches.append(step_mod.detect_embed_core(
+                yp, rp, rs, yuv, torch.ones(b, dtype=torch.bool, device=dev), lut, ycfg=cfg, hp=hp,
+                image_size=net, src_hw=SRC_HW, conf_thres=conf, iou_thres=0.45, max_det=300, dtype=torch.bfloat16))
+    del frames
+
+    def scan(states, det, feats, graph, staged):
+        old = step_mod.USE_FRAME_GRAPH, tracker.FORCE_CASCADE_KERNEL
+        step_mod.USE_FRAME_GRAPH = None if graph else False
+        tracker.FORCE_CASCADE_KERNEL = False if staged else old[1]
+        try:
+            with torch.no_grad():
+                return step_mod.tracker_scan(states, det, feats, hp=hp, src_hw=SRC_HW)
+        finally:
+            step_mod.USE_FRAME_GRAPH, tracker.FORCE_CASCADE_KERNEL = old
+
+    counters = kernel_counters()
+    runs, launches = {}, {}
+    for staged in (False, True):
+        for graph in (False, True):
+            zero_counts(counters)
+            states, per_batch = init_states(hp, dev), []
+            for det, feats in batches:
+                states, outs = scan(states, det, feats, graph, staged)
+                per_batch.append((TrackerState(*(t.clone() for t in states)), outs))
+            torch.cuda.synchronize()
+            runs[staged, graph] = per_batch
+            launches[staged, graph] = read_counts(counters)
+        for i, ((st_e, out_e), (st_g, out_g)) in enumerate(zip(runs[staged, False], runs[staged, True])):
+            for name, e, g in zip(st_e._fields + out_e._fields, tuple(st_e) + tuple(out_e), tuple(st_g) + tuple(out_g)):
+                if not torch.equal(e, g):
+                    raise AssertionError(f"frame graph != eager loop on the {'staged' if staged else 'K2'} route, "
+                                         f"batch {i}: {name} differs")
+        if launches[staged, False] != launches[staged, True]:
+            raise AssertionError(f"launch counts differ, eager {launches[staged, False]} vs graph {launches[staged, True]}")
+    for (st_k, out_k), (st_s, out_s) in zip(runs[False, True], runs[True, True]):
+        for name in ("ids", "mask", "boxes"):
+            if not torch.equal(getattr(out_k, name), getattr(out_s, name)):
+                raise AssertionError(f"staged route and K2 route differ under the graph: track {name}")
+    n_out = sum(int(o.mask.sum()) for _, o in runs[False, True])
+    k2_l, st_l = launches[False, True], launches[True, True]
+    if (k2_l["cascade"] != N_FRAMES or k2_l["match_stage"] or st_l["cascade"] or st_l["match_stage"] != 31 * N_FRAMES
+            or k2_l["insert_rows"] or st_l["insert_rows"]):
+        raise AssertionError(f"frame graph launch counts over {N_FRAMES} frames: K2 route {k2_l}, staged route {st_l}")
+    # what one replay really launches, read from the card's trace, against
+    # what the runner adds to the wrappers' counts per replay
+    measured = {}
+    for staged in (False, True):
+        old = tracker.FORCE_CASCADE_KERNEL
+        tracker.FORCE_CASCADE_KERNEL = False if staged else old
+        try:
+            runner = step_mod.frame_runner(hp, SRC_HW, dev)
+        finally:
+            tracker.FORCE_CASCADE_KERNEL = old
+        events = device_events(runner._step)
+        seen = {"cascade": sum("cascade_kernel" in name for name, _ in events),
+                "match_stage": sum("match_stage_kernel" in name for name, _ in events),
+                "insert_rows": sum("insert_rows_kernel" in name for name, _ in events)}
+        counted = {"cascade": 0, "match_stage": 0, "insert_rows": 0}
+        for name, fns in counters.items():
+            if name in counted:
+                counted[name] = sum(runner.replay_launches.get(fn, 0) for fn in fns)
+        want = {"cascade": 0, "match_stage": 31, "insert_rows": 0} if staged else {"cascade": 1, "match_stage": 0, "insert_rows": 0}
+        if seen != counted or seen != want:
+            raise AssertionError(f"one replay on the {'staged' if staged else 'K2'} route: the trace shows {seen} device "
+                                 f"kernels, the runner counts {counted}, expected {want}")
+        measured["staged" if staged else "k2"] = {"device_kernels_per_replay": len(events), **seen}
+    print(f"frame graph == eager loop, bitwise, on all {len(TrackerState._fields)} state leaves and 4 outputs after each "
+          f"of {len(batches)} batches of {b} frames, on both routes ({n_out} track outputs); staged == K2 route on ids, "
+          f"mask, boxes; launches over {N_FRAMES} frames: K2 route {k2_l['cascade']} K2, staged route "
+          f"{st_l['match_stage']} K4 match_stage (31 per frame: min(max_age, K) + 1); one replay in the card's trace "
+          f"(torch.profiler): {measured}, equal to the counts the runner adds per replay; warm-up launches of the "
+          f"captures so far, on scratch state and in no count above: {dict(graph_mod.warmup_launches)}")
+
+    # tracker A/B on the steady-state batch
+    warmed = runs[False, False][0][0]
+    det, feats = batches[1]
+
+    def scan_ms(graph, staged):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan(TrackerState(*(t.clone() for t in warmed)), det, feats, graph, staged)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / b
+
+    ab = {}
+    for staged in (False, True):
+        scan_ms(True, staged), scan_ms(False, staged)  # warm-up
+        t = {"off": [], "on": []}
+        for graph in (False, True, True, False) * 2:
+            t["on" if graph else "off"].append(scan_ms(graph, staged))
+        ab["staged" if staged else "k2"] = t
+        print(f"tracker_scan ms/frame (B={b}, steady state, bf16 gallery, host clock, {'staged' if staged else 'K2'} route), "
+              f"graph off/on/on/off x2: off {[round(v, 4) for v in t['off']]} (min {min(t['off']):.4f}, median "
+              f"{np.median(t['off']):.4f}), on {[round(v, 4) for v in t['on']]} (min {min(t['on']):.4f}, median "
+              f"{np.median(t['on']):.4f})")
+    step_mod.free_frame_runners()
+    return {"ab": ab, "launches_k2_route": k2_l, "launches_staged_route": st_l, "replay_in_trace": measured}
 
 
 def run_stage_bench(dev):
@@ -1139,20 +1530,36 @@ def main() -> int:
         conf, mapping = calibrate(dev, path)
         print(f"min_conf {conf:.6f}, mapping {mapping}")
         phase("pipeline", card)
+        from vehicle_counting_tpu_torch.tracking import graph as graph_mod
+
+        graph_mod.warmup_launches.clear()
         fps, launches, df = run_pipeline(dev, tmp, path, zones, conf, mapping)
+        warmup = {"cascade": graph_mod.warmup_launches.get("cascade_match_classparallel", 0)}
+        print(f"beside the {launches['cascade']} K2 launches that advanced the tracker, the capture's warm-up made "
+              f"{warmup['cascade']} on scratch state")
         for name in ("crops", "cascade"):
             if launches[name] <= 0:
                 raise AssertionError(f"the main path never launched the {name} kernel")
+        if launches["cascade"] != N_FRAMES:
+            raise AssertionError(f"the main path replays one K2 launch per frame: {launches['cascade']} for {N_FRAMES} frames")
+        phase("pipeline A/B: the CLI with the frame graph off / off / on", card)
+        cli_fps = run_cli_ab(dev, tmp, path, zones, conf, mapping, df, fps)
         phase("switched pipeline: fused ReID block + staged association", card)
+        graph_mod.warmup_launches.clear()
         launches_sw, df_sw = run_switched(dev, tmp, path_sw, zones_sw, conf, mapping)
+        warmup["match_stage"] = graph_mod.warmup_launches.get("match_stage_batched", 0)
         n_default = df[df.frame_id < N_SWITCHED].track_id.nunique() if len(df) else 0
         n_switched = df_sw.track_id.nunique() if len(df_sw) else 0
         print(f"tracks in the zone over the first {N_SWITCHED} frames: switched run {n_switched}, "
               f"default run {n_default} (not asserted equal: K5 rounds each block's output to bf16)")
         phase("layer-1 path (K6, stand-alone)", card)
         launches_k6 = run_layer1_path(dev, path)
+        phase("compacted stage path (K4 insert_rows, stand-alone)", card)
+        launches_ins = run_compacted_stage_path(dev)
         phase("parity", card)
         scan = check_parity(dev, path)
+        phase("frame graph: graph == eager loop on both routes, tracker A/B", card)
+        fg = check_frame_graph(dev, path, conf, mapping)
         phase("--profile CLI run + profile_summary", card)
         prof = run_profile(dev, tmp, path_sw, zones_sw, conf, mapping)
         phase("--weight CLI run (seeded .pt + .t7)", card)
@@ -1170,10 +1577,19 @@ def main() -> int:
              launches_bench=launches_bench["crops"], launches_stage_bench=launches_stage["crops"], **k1),
         dict(name="cascade_match", route="cuda", source="vehicle_counting_tpu_torch/csrc/cascade.cu",
              replaces="vehicle_counting_tpu/ops/pallas/cascade.py:887", launches=launches["cascade"],
-             launches_bench=launches_bench["cascade"], launches_stage_bench=launches_stage["cascade"], **k2),
+             launches_bench=launches_bench["cascade"], launches_stage_bench=launches_stage["cascade"],
+             launches_per_frame=launches["cascade"] / N_FRAMES, warmup_launches=warmup["cascade"],
+             replay_in_trace=fg["replay_in_trace"]["k2"], **k2),
         dict(name="insert_rows", route="cuda", source="vehicle_counting_tpu_torch/csrc/assignment.cu",
-             replaces="vehicle_counting_tpu/ops/pallas/assignment.py:179", launches=launches_sw["assignment"],
-             path="switched", **k4),
+             replaces="vehicle_counting_tpu/ops/pallas/assignment.py:179", launches=launches_ins,
+             path="compacted stage stand-alone", launches_switched=launches_sw["insert_rows"],
+             **{k: v for k, v in k4.items() if k != "match_stage"}),
+        dict(name="match_stage", route="cuda", source="vehicle_counting_tpu_torch/csrc/assignment.cu",
+             replaces="vehicle_counting_tpu/ops/pallas/assignment.py:179", launches=launches_sw["match_stage"],
+             path="switched", launches_per_frame=launches_sw["match_stage"] / N_SWITCHED,
+             launches_graph_256_frames=fg["launches_staged_route"]["match_stage"],
+             warmup_launches=warmup["match_stage"], replay_in_trace=fg["replay_in_trace"]["staged"],
+             **k4["match_stage"]),
         dict(name="reid_block64", route="cuda", source="vehicle_counting_tpu_torch/csrc/reid_block.cu",
              replaces="vehicle_counting_tpu/ops/pallas/reid_block.py:139", launches=launches_sw["reid_block"],
              path="switched", **k5),
@@ -1189,6 +1605,8 @@ def main() -> int:
     print(f"embed ms/frame, bf16: K5 off {emb['off']:.4f}, K5 on {emb['on']:.4f} [{card}]")
     print(f"tracker ms/frame, f32 B=16: K2 route min {min(scan['k2']):.4f}, staged route min "
           f"{min(scan['staged']):.4f} [{card}]")
+    print(f"tracker_scan ms/frame, B=128 steady state, frame graph off / on: {json.dumps(fg['ab'])} [{card}]")
+    print(f"CLI frames/s, frame graph off / on: {json.dumps(cli_fps)} [{card}]")
     print(f"launch cost, us: {json.dumps(k7['probe'])} [{card}]")
     print(f"stage_bench ms/frame (min, median): {json.dumps(stages)} [{card}]")
     print(f"bench: {json.dumps(metric)}; streamed p50 {telemetry['p50_fps']} min {telemetry['min_fps']} best "

@@ -74,7 +74,7 @@ def test_entry_raises_on_a_missing_symbol():
         _build.entry(_Lib(), "vct_missing", [])
 
 
-@pytest.mark.parametrize("module, n_args", [(crops, 18), (conv_s2, 9), (cascade, 19), (assignment, 6),
+@pytest.mark.parametrize("module, n_args", [(crops, 18), (conv_s2, 9), (cascade, 21), (assignment, 6),
                                             (reid_block, 9), (noop, 4)])
 def test_wrappers_declare_their_argtypes_once(module, n_args):
     """Every wrapper hands `_build.entry` one module-level list: pointers
@@ -83,3 +83,11 @@ def test_wrappers_declare_their_argtypes_once(module, n_args):
     types = module._ARGTYPES
     assert len(types) == n_args and types[-1] is ctypes.c_void_p
     assert set(types) <= {ctypes.c_void_p, ctypes.c_int, ctypes.c_float}
+
+
+def test_fused_stage_entry_declares_its_argtypes():
+    """K4's second entry (`vct_match_stage`): seven pointers, C, K, the
+    threshold and its clamp, the stream last."""
+    types = assignment._STAGE_ARGTYPES
+    assert len(types) == 12 and types[-1] is ctypes.c_void_p
+    assert types[:7] == [ctypes.c_void_p] * 7 and types[7:11] == [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float]

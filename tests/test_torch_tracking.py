@@ -21,6 +21,8 @@ from vehicle_counting_tpu.tracking.deepsort import deepsort_frame_core as j_core
 from vehicle_counting_tpu.tracking.deepsort import init_states as j_init
 from vehicle_counting_tpu.tracking.tracker import TrackerParams as JTP
 from vehicle_counting_tpu.tracking.tracker import _associate_xla, _cascade_kernel_mode, _stable_rank
+from vehicle_counting_tpu.tracking import tracker as jtrk
+from vehicle_counting_tpu_torch.ops import assignment as tasg
 from vehicle_counting_tpu_torch.ops import cascade as tcas
 from vehicle_counting_tpu_torch.testing import association_problem
 from vehicle_counting_tpu_torch.tracking import kalman as tk
@@ -94,19 +96,19 @@ def _jax_associate(k, max_age):
 
 
 @pytest.mark.parametrize("route", ["kernel", "staged"])
-@pytest.mark.parametrize("kind", ["random", "ties", "empty"])
+@pytest.mark.parametrize("kind", ["random", "ties", "empty", "steady"])
 def test_association_bitwise_equal_to_jax(kind, route):
     """K2's plain version, and the [C]-batched staged route, per class
     against JAX `_associate_xla`."""
     k, c, max_age = 12, 4, 5
     fn = _jax_associate(k, max_age)
     hp = TrackerParams(capacity=k, max_age=max_age)
-    rng = np.random.default_rng({"random": 10, "ties": 11, "empty": 12}[kind])
+    rng = np.random.default_rng({"random": 10, "ties": 11, "empty": 12, "steady": 17}[kind])
     for _ in range(4):
         pr = association_problem(rng, c, k, max_age, kind)
         args = [torch.from_numpy(pr[n]) for n in NAMES]
         if route == "kernel":
-            det_free, det_key, out_row = tcas.cascade_match_classparallel(*args, 0.2, 0.6, max_age=max_age)
+            det_free, det_key, out_row, track_col = tcas.cascade_match_classparallel(*args, 0.2, 0.6, max_age=max_age)
         else:
             det_free, track_col, det_key = trk._associate_staged(*args, hp)
         for ci in range(c):
@@ -117,8 +119,7 @@ def test_association_bitwise_equal_to_jax(kind, route):
                 want_row = np.full(k, -1)
                 want_row[jcol[jcol >= 0]] = np.nonzero(jcol >= 0)[0]
                 np.testing.assert_array_equal(out_row[ci].numpy(), want_row)
-            else:
-                np.testing.assert_array_equal(track_col[ci].numpy(), jcol)
+            np.testing.assert_array_equal(track_col[ci].numpy(), jcol)
 
 
 def test_association_matches_pallas_kernel_interpret():
@@ -134,11 +135,15 @@ def test_association_matches_pallas_kernel_interpret():
         jnp.asarray(pr["det_valid"], jnp.int32), jnp.asarray(pr["det_order"]),
         0.2, 0.6, max_age=max_age, interpret=True,
     )
-    t_free, t_key, t_row = tcas.cascade_match_batched(
+    t_free, t_key, t_row, t_col = tcas.cascade_match_batched(
         *(torch.from_numpy(pr[n]) for n in NAMES), 0.2, 0.6, max_age=max_age)
     np.testing.assert_array_equal(t_free.numpy(), np.asarray(j_free))
     np.testing.assert_array_equal(t_key.numpy(), np.asarray(j_key))
     np.testing.assert_array_equal(t_row.numpy(), np.asarray(j_row))
+    want_col = np.full((c, k), -1)
+    for ci, row in enumerate(np.asarray(j_row)):
+        want_col[ci, row[row >= 0]] = np.nonzero(row >= 0)[0]
+    np.testing.assert_array_equal(t_col.numpy(), want_col)
 
 
 def _scenario(seed, frames=20, n=24, c=3, feat=512):
@@ -181,11 +186,15 @@ def _scenario(seed, frames=20, n=24, c=3, feat=512):
     return out
 
 
-def _run_frames(frames, k, max_age, out_hw=(260, 300), c=3):
+_STATE_INTS = ("track_id", "state", "hits", "age", "tsu", "gallery_count", "pending_count", "next_id", "overflow")
+
+
+def _run_frames(frames, k, max_age, out_hw=(260, 300), c=3, check_state=False, **tracker_kw):
     """JAX and the port's deepsort_frame_core over the frames; asserts each
-    frame's outputs equal and returns (confirmed outputs, states)."""
-    jhp = JDP(tracker=JTP(capacity=k, max_age=max_age, n_init=3), num_classes=c)
-    thp = DeepSortParams(tracker=TrackerParams(capacity=k, max_age=max_age, n_init=3), num_classes=c)
+    frame's outputs equal (with check_state, the integer state leaves too)
+    and returns (confirmed outputs, states)."""
+    jhp = JDP(tracker=JTP(capacity=k, max_age=max_age, n_init=3, **tracker_kw), num_classes=c)
+    thp = DeepSortParams(tracker=TrackerParams(capacity=k, max_age=max_age, n_init=3, **tracker_kw), num_classes=c)
     jstep = jax.jit(lambda st, *a: j_core(st, *a, jhp, out_hw))
     jst, tst = j_init(jhp), init_states(thp)
     confirmed = 0
@@ -197,6 +206,9 @@ def _run_frames(frames, k, max_age, out_hw=(260, 300), c=3):
         np.testing.assert_array_equal(to.ids.numpy(), np.asarray(jo.ids))
         np.testing.assert_allclose(to.boxes.numpy(), np.asarray(jo.boxes), atol=1e-4)
         np.testing.assert_allclose(to.scores.numpy(), np.asarray(jo.scores), atol=1e-6)
+        if check_state:
+            for name in _STATE_INTS:
+                np.testing.assert_array_equal(getattr(tst, name).numpy(), np.asarray(getattr(jst, name)), err_msg=name)
         confirmed += int(np.asarray(jo.mask).sum())
     return confirmed, jst, tst
 
@@ -244,10 +256,28 @@ def test_key_gate_takes_staged_route(monkeypatch):
     assert calls and confirmed > 0
 
 
-def test_association_rejects_k_past_256():
-    k = 257
+def test_k320_takes_staged_route_matches_jax(monkeypatch):
+    """K = 320 is past K2's 256 slots: the port takes the staged route, as
+    JAX does with its Pallas cascade off, and agrees with it frame by frame
+    (ids, mask and the integer state exactly; boxes atol 1e-4)."""
+    k, max_age = 320, 4
+    monkeypatch.setattr(jtrk, "FORCE_PALLAS_CASCADE", False)
+    assert _cascade_kernel_mode(JTP(capacity=k, max_age=max_age)) == "off"
+    assert not trk._use_cascade_kernel(TrackerParams(capacity=k, max_age=max_age))
+    assert trk._use_cascade_kernel(TrackerParams(capacity=256, max_age=max_age))
+    calls = []
+    monkeypatch.setattr(trk, "_associate_staged", lambda *a: calls.append(1) or _staged(*a))
+    confirmed, _, _ = _run_frames(_scenario(22, frames=8, feat=32), k, max_age, c=2, check_state=True,
+                                  feat_dim=32, budget=6)
+    assert len(calls) == 8 and confirmed > 0
+
+
+def test_association_rejects_k_past_max_s():
+    """Past kernel K4's width (one column per thread, K <= 1023) the staged
+    route raises, on the CPU as on the card."""
+    k = tasg.MAX_S + 1
     z = torch.zeros((1, k), dtype=torch.int32)
-    with pytest.raises(ValueError, match="K <= 256"):
+    with pytest.raises(ValueError, match=f"K <= {tasg.MAX_S}"):
         trk._associate(torch.zeros((1, k, k)), torch.zeros((1, k, k)), z, z.bool(), z, z, z.bool(), z,
                        TrackerParams(capacity=k, max_age=3))
 
@@ -255,8 +285,13 @@ def test_association_rejects_k_past_256():
 def test_kernel_gate_raises_past_key_range():
     pr = association_problem(np.random.default_rng(15), 2, 8, 4, "random")
     args = [torch.from_numpy(pr[n]) for n in NAMES]
-    with pytest.raises(ValueError, match="key range"):
-        tcas._launch(*args, 0.2, 0.6, (1 << 22) // 8)
+    # the kernel ranks its keys before packing them: its own limit is the
+    # int32 range of the demoted keys, (max_age + 2) * K
+    with pytest.raises(ValueError, match="int32 range of the detection keys"):
+        tcas._launch(*args, 0.2, 0.6, (1 << 31) // 8)
+    # the routing keeps the reference's gate: past 2^22 the staged route
+    assert not trk._use_cascade_kernel(TrackerParams(capacity=8, max_age=(1 << 22) // 8))
+    assert trk._use_cascade_kernel(TrackerParams(capacity=8, max_age=30))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 // Jonker-Volgenant shortest-augmenting-path row insertion, one column per
 // thread, shared by the association kernel (cascade.cu, K2) and the
-// batched assignment kernel (assignment.cu, K4).
+// assignment kernels (assignment.cu, K4: the compacted insertion and the
+// fused matching stage).
 //
 // Same steps as vehicle_counting_tpu_torch/tracking/assignment.py::
 // _insert_rows: for each inserted element, a Dijkstra search over the
@@ -11,6 +12,10 @@
 // smallest order key, then the smallest lane. The arithmetic is f32
 // subtraction and comparison only, so a plain version doing the same
 // steps is bitwise-equal.
+//
+// The chain is latency-bound, so barriers are what it pays for: a Dijkstra
+// step costs one __syncthreads (inside the block min), an inserted element
+// two more.
 
 #pragma once
 
@@ -20,6 +25,7 @@
 namespace vct_jv {
 
 constexpr float INF = 1e18f;
+constexpr int RED_WORDS = 64;  // two banks of one word per warp
 
 template <int LANE_BITS>
 __device__ __forceinline__ unsigned long long pack(float x, int key, int lane) {
@@ -35,49 +41,67 @@ __device__ __forceinline__ float unpack_value(unsigned long long q) {
   return __uint_as_float(b);
 }
 
-// Block-wide min; red holds 32 words. Every thread gets the result.
-__device__ inline unsigned long long block_min_u64(unsigned long long x, unsigned long long* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    unsigned long long y = __shfl_down_sync(0xffffffffu, x, o);
+__device__ __forceinline__ unsigned long long warp_min_u64(unsigned long long x, int from) {
+  for (int o = from; o > 0; o >>= 1) {
+    const unsigned long long y = __shfl_xor_sync(0xffffffffu, x, o);
     x = y < x ? y : x;
   }
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  __syncthreads();  // the previous call's broadcast has been read
-  if (l == 0) red[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    const int nw = blockDim.x >> 5;
-    x = l < nw ? red[l] : ~0ull;
-    for (int o = 16; o > 0; o >>= 1) {
-      unsigned long long y = __shfl_down_sync(0xffffffffu, x, o);
-      x = y < x ? y : x;
-    }
-    if (l == 0) red[0] = x;
-  }
-  __syncthreads();
-  return red[0];
+  return x;
 }
+
+// Block-wide min with ONE barrier per call: every warp leaves its partial
+// in a bank of `red` (RED_WORDS words, two banks used in turns) and, after
+// the barrier, every warp reduces the bank itself. A bank is rewritten two
+// calls later, and the barrier of the call in between orders that write
+// after every read of this one. All threads of the block must make every
+// call. Every thread gets the result.
+struct BlockMin {
+  unsigned long long* red;
+  int bank;
+
+  __device__ __forceinline__ explicit BlockMin(unsigned long long* r) : red(r), bank(0) {}
+
+  __device__ __forceinline__ unsigned long long operator()(unsigned long long x) {
+    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+    const int nw = blockDim.x >> 5;
+    x = warp_min_u64(x, 16);
+    unsigned long long* r = red + bank;
+    bank ^= 32;
+    if (l == 0) r[w] = x;
+    __syncthreads();
+    x = l < nw ? r[l] : ~0ull;
+    // the partials sit in lanes 0..nw-1: reduce that group, lane 0 tells the rest
+    x = warp_min_u64(x, nw > 16 ? 16 : nw > 8 ? 8 : nw > 4 ? 4 : nw > 2 ? 2 : 1);
+    return __shfl_sync(0xffffffffu, x, 0);
+  }
+};
 
 // Insert n_ins elements, in the order ins_order[0..n_ins) (pos itself when
 // ins_order is null), against K scanned columns. Thread t < K owns column
 // t; thread K is the virtual root column, so the block needs > K threads.
-// live: column t takes part; skey: its tie order key (< 2^(31-LANE_BITS));
+// live: column t takes part; skey: its tie order key (< 2^(32-LANE_BITS));
 // cost(i0): this thread's column cost against inserted element i0.
 // Caller sets u[0..K] = 0 and p[0..K] = -1 and synchronises first. On
 // return p[j] is the element assigned to column j (-1 free) and p[K] the
-// last inserted element.
+// last inserted element; the block is synchronised.
+//
+// Why a step needs no barrier of its own: u[.] is written only for the
+// rows of used columns, the next step reads u[.] of the row of a column
+// that was not used yet (rows of distinct columns are distinct), and the
+// next step's writes come after its block min's barrier; p is not written
+// between augmentations.
 template <int LANE_BITS, class Cost>
 __device__ void insert_rows(int n_ins, int K, const int* ins_order, bool live, int skey, Cost cost,
-                            float* u, int* p, int* way_s, unsigned long long* red) {
+                            float* u, int* p, int* way_s, BlockMin& bmin) {
   const int t = threadIdx.x;
   float v = 0.0f;
+  if (t == 0 && n_ins > 0) p[K] = ins_order ? ins_order[0] : 0;
+  __syncthreads();
   for (int pos = 0; pos < n_ins; ++pos) {
-    if (t == 0) p[K] = ins_order ? ins_order[pos] : pos;
     float minv = INF;
     int way = K;
     bool used = false;
     int j0 = K;
-    __syncthreads();
     // each step marks one more column used, so K + 1 steps bound the search
     for (int step = 0; step <= K; ++step) {
       const int i0 = p[j0];
@@ -91,7 +115,7 @@ __device__ void insert_rows(int n_ins, int K, const int* ins_order, bool live, i
           way = j0;
         }
       }
-      const unsigned long long best = block_min_u64(pack<LANE_BITS>(cand ? minv : INF, skey, t), red);
+      const unsigned long long best = bmin(pack<LANE_BITS>(cand ? minv : INF, skey, t));
       const float delta = unpack_value(best);
       const int j1 = (int)(best & ((1u << LANE_BITS) - 1));
       if (used) {
@@ -101,7 +125,6 @@ __device__ void insert_rows(int n_ins, int K, const int* ins_order, bool live, i
         minv -= delta;
       }
       j0 = j1;
-      __syncthreads();
     }
     if (t < K) way_s[t] = way;
     __syncthreads();
@@ -112,6 +135,7 @@ __device__ void insert_rows(int n_ins, int K, const int* ins_order, bool live, i
         p[j] = p[j1];
         j = j1;
       }
+      if (pos + 1 < n_ins) p[K] = ins_order ? ins_order[pos + 1] : pos + 1;
     }
     __syncthreads();
   }

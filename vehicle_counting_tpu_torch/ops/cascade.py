@@ -12,15 +12,24 @@ solve of the gated appearance cost, matches above `max_dist` rejected and
 their detections demoted to the end of the unmatched list -- then the IoU
 stage on tentative and just-missed tracks (tracker.py:117-127).
 
-Outputs: det_free [C, K] bool, det_key [C, K] i32 (unmatched-list order
-keys that decide new track ids) and out_row [C, K] i32 (detection slot ->
-matched track slot, -1 none). The kernel is bitwise-equal to the plain
-version: its arithmetic is f32 subtraction and comparison only.
+Outputs (`CascadeOut`): det_free [C, K] bool, det_key [C, K] i32
+(unmatched-list order keys that decide new track ids), out_row [C, K] i32
+(detection slot -> matched track slot, -1 none) and track_col [C, K] i32
+(track slot -> matched detection slot, -1 none). The kernel is
+bitwise-equal to the plain version: its arithmetic is f32 subtraction and
+comparison only.
+
+The launch is shaped to be a node of a captured CUDA graph: operands are
+read in the dtypes the tracker holds them in (bool as bytes; the wrapper
+checks and never casts), the outputs are written in the dtypes the tracker
+reads, and the kernel's one-time set-up is made at first use on each
+device, outside any launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,10 +38,12 @@ from vehicle_counting_tpu_torch import _build
 from vehicle_counting_tpu_torch.tracking.assignment import matching_cost_matrix, solve_assignment_sub
 
 IMAX = 2147483647
-# demoted det keys reach (max_age + 2) * K; the kernel packs key and lane
-# into one 31-bit word, like the TPU kernel's exact-f32 range gate
-KEY_LIMIT = 1 << 22
-MAX_K = 256
+# The kernel's own limits: one slot per thread plus the root column; order
+# keys are ranked before they are packed, so any int32 key does, as long as
+# the demoted keys, which reach (max_age + 2) * K, stay in int32. The
+# tracker's routing (`tracking/tracker.py::_use_cascade_kernel`) is
+# narrower: it keeps the TPU kernel's gates.
+MAX_K = 1023
 
 
 def _clamp_value(threshold: float) -> float:
@@ -111,63 +122,109 @@ def associate_plain(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
 
 def _cascade_plain(gated_c, iou_c, lvl_of, tentative, row_key, iou_key,
                    det_valid, det_order, max_dist, max_iou, max_age):
-    """Plain version of the kernel: `associate_plain` class by class."""
+    """Plain version of the kernel: `associate_plain` class by class.
+    track_col is the staged association's own; out_row is its inverse."""
     c, k, _ = gated_c.shape
-    det_free = torch.zeros((c, k), dtype=torch.bool)
-    det_key = torch.zeros((c, k), dtype=torch.int32)
-    out_row = torch.full((c, k), -1, dtype=torch.int32)
+    out = _out_buffers(c, k, gated_c.device)
+    out.out_row.fill_(-1)
     for ci in range(c):
         free, track_col, key = associate_plain(
             gated_c[ci].float(), iou_c[ci].float(), lvl_of[ci].to(torch.int32),
             tentative[ci].bool(), row_key[ci].to(torch.int32), iou_key[ci].to(torch.int32),
             det_valid[ci].bool(), det_order[ci].to(torch.int32), max_dist, max_iou, max_age,
         )
-        det_free[ci] = free
-        det_key[ci] = key
+        out.det_free[ci] = free
+        out.det_key[ci] = key
+        out.track_col[ci] = track_col
         matched = torch.nonzero(track_col >= 0).flatten()
-        out_row[ci, track_col[matched].long()] = matched.to(torch.int32)
-    return det_free, det_key, out_row
+        out.out_row[ci, track_col[matched].long()] = matched.to(torch.int32)
+    return out
+
+
+class CascadeOut(NamedTuple):
+    """What one association leaves, all [C, K]."""
+
+    det_free: torch.Tensor   # bool: detection still unmatched
+    det_key: torch.Tensor    # i32 unmatched-list order key
+    out_row: torch.Tensor    # i32 detection slot -> matched track slot (-1 none)
+    track_col: torch.Tensor  # i32 track slot -> matched detection slot (-1 none)
+
+
+def _out_buffers(c: int, k: int, device) -> CascadeOut:
+    i32 = dict(dtype=torch.int32, device=device)
+    return CascadeOut(torch.empty((c, k), dtype=torch.bool, device=device), torch.empty((c, k), **i32),
+                      torch.empty((c, k), **i32), torch.empty((c, k), **i32))
 
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int]
-    + [ctypes.c_float] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_float] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6
 )
+_OPERAND_DTYPES = (("lvl_of", torch.int32), ("tentative", torch.bool), ("row_key", torch.int32),
+                   ("iou_key", torch.int32), ("det_valid", torch.bool), ("det_order", torch.int32))
+_prepared = set()  # device indices whose shared-memory limit is raised
+
+
+def _entry(dev):
+    """The kernel's C entry. At its first use the library is built, and at
+    the first use on each device the kernel's shared-memory limit is raised
+    there: a launch itself configures nothing, so it can be a node of a
+    captured graph."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in _prepared:
+        with torch.cuda.device(index):
+            _build.check(_build.entry("cascade", "vct_cascade_prepare", [])(), "cascade association kernel set-up")
+        _prepared.add(index)
+    return _build.entry("cascade", "vct_cascade_match", _ARGTYPES)
 
 
 def _launch(gated_c, iou_c, lvl_of, tentative, row_key, iou_key, det_valid,
-            det_order, max_dist, max_iou, max_age):
-    """Check the operands and launch the CUDA kernel: one block per class."""
+            det_order, max_dist, max_iou, max_age, prof=None):
+    """Check the operands and launch the CUDA kernel: one block per class.
+    The kernel reads every operand in the dtype the tracker holds it in
+    (bool as bytes), so nothing is cast or copied here."""
     dev = gated_c.device
     c, k, k2 = gated_c.shape
     if k != k2 or iou_c.shape != (c, k, k):
         raise ValueError(f"cost matrices must be [C, K, K], got {tuple(gated_c.shape)} and {tuple(iou_c.shape)}")
     if k > MAX_K:
         raise ValueError(f"association kernel takes K <= {MAX_K}, got {k}")
-    if (max_age + 2) * k >= KEY_LIMIT:
-        raise ValueError(f"(max_age + 2) * K = {(max_age + 2) * k} exceeds the kernel's key range {KEY_LIMIT}")
-    if gated_c.dtype != torch.float32 or iou_c.dtype != torch.float32:
-        raise ValueError("cost matrices must be float32")
-    ints = []
-    for name, t in (("lvl_of", lvl_of), ("tentative", tentative), ("row_key", row_key),
-                    ("iou_key", iou_key), ("det_valid", det_valid), ("det_order", det_order)):
-        if t.shape != (c, k) or t.device != dev:
-            raise ValueError(f"{name} must be [C, K] on {dev}, got {tuple(t.shape)} on {t.device}")
-        ints.append(t.to(torch.int32).contiguous())
-    gated_c = gated_c.contiguous()
-    iou_c = iou_c.contiguous()
-    out = torch.empty((3, c, k), dtype=torch.int32, device=dev)
-    fn = _build.entry("cascade", "vct_cascade_match", _ARGTYPES)
-    rc = fn(
-        gated_c.data_ptr(), iou_c.data_ptr(), *(t.data_ptr() for t in ints),
+    if (max_age + 2) * k > IMAX:
+        raise ValueError(f"(max_age + 2) * K = {(max_age + 2) * k} exceeds the int32 range of the detection keys")
+    for name, t in (("gated_c", gated_c), ("iou_c", iou_c)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be contiguous float32 on {dev}, got {t.dtype} on {t.device}")
+    vecs = (lvl_of, tentative, row_key, iou_key, det_valid, det_order)
+    for (name, dtype), t in zip(_OPERAND_DTYPES, vecs):
+        if t.shape != (c, k) or t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} [C, K] on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    out = _out_buffers(c, k, dev)
+    rc = _entry(dev)(
+        gated_c.data_ptr(), iou_c.data_ptr(), *(t.data_ptr() for t in vecs),
         c, k,
         float(np.float32(max_dist)), float(np.float32(max_iou)),
         _clamp_value(max_dist), _clamp_value(max_iou), int(max_age),
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        _build.current_stream(dev),
+        out.out_row.data_ptr(), out.det_free.data_ptr(), out.det_key.data_ptr(), out.track_col.data_ptr(),
+        0 if prof is None else prof.data_ptr(), _build.current_stream(dev),
     )
     _build.check(rc, "cascade association kernel")
-    return out[1] != 0, out[2], out[0]  # det_free, det_key, out_row
+    return out
+
+
+PROF_SECTIONS = ("load", "level_walk", "stage_ranks", "stage_insert", "stage_accept", "store", "total", "stages")
+
+
+def cascade_clock_split(*args, max_age: int):
+    """One launch of the kernel's instrumented variant on CUDA operands
+    (those of `cascade_match_classparallel`): {section: clock64 ticks of
+    thread 0, summed over classes}, "stages" the non-empty stages run. For
+    measurement only; it counts as no launch of the main path."""
+    c = args[0].shape[0]
+    words = _build.entry("cascade", "vct_cascade_prof_words", [])()
+    prof = torch.zeros((c, words), dtype=torch.int64, device=args[0].device)
+    _launch(*args, max_age, prof=prof)
+    return dict(zip(PROF_SECTIONS, prof.sum(0).tolist()))
 
 
 def _dispatch(wrapper, args):
@@ -175,22 +232,23 @@ def _dispatch(wrapper, args):
         return _cascade_plain(*args)
     if args[0].device.type != "cuda":
         raise ValueError(f"unsupported device {args[0].device}")
-    out = _launch(*args)
+    res = _launch(*args)
     wrapper.launches += 1
-    return out
+    return res
 
 
 def cascade_match_classparallel(gated_c, iou_c, lvl_of, tentative, row_key, iou_key,
-                                det_valid, det_order, max_dist, max_iou, *, max_age: int):
+                                det_valid, det_order, max_dist, max_iou, *, max_age: int) -> CascadeOut:
     """K2: full cascade + IoU association for [C] classes in one launch.
 
-    Args (all leading [C]): gated_c [C, K, K] cascade cost (appearance with
-    Mahalanobis gating, BIG at invalid detections), iou_c [C, K, K] IoU cost
-    (tsu > 1 rows at INFTY), lvl_of [C, K] cascade level per track slot
-    (IMAX when not participating), tentative [C, K], row_key / iou_key
-    [C, K] cascade / IoU row order keys (ranked stably in the kernel),
-    det_valid [C, K], det_order [C, K] initial unmatched-list keys.
-    Returns (det_free [C, K] bool, det_key [C, K] i32, out_row [C, K] i32).
+    Args (all leading [C], contiguous): gated_c [C, K, K] f32 cascade cost
+    (appearance with Mahalanobis gating, BIG at invalid detections), iou_c
+    [C, K, K] f32 IoU cost (tsu > 1 rows at INFTY), lvl_of [C, K] i32
+    cascade level per track slot (IMAX when not participating), tentative
+    [C, K] bool, row_key / iou_key [C, K] i32 cascade / IoU row order keys
+    (ranked stably in the kernel), det_valid [C, K] bool, det_order [C, K]
+    i32 initial unmatched-list keys.
+    Returns CascadeOut(det_free bool, det_key i32, out_row i32, track_col i32).
     """
     return _dispatch(
         cascade_match_classparallel,
@@ -200,7 +258,7 @@ def cascade_match_classparallel(gated_c, iou_c, lvl_of, tentative, row_key, iou_
 
 
 def cascade_match_batched(gated_c, iou_c, lvl_of, tentative, row_key, iou_key,
-                          det_valid, det_order, max_dist, max_iou, *, max_age: int):
+                          det_valid, det_order, max_dist, max_iou, *, max_age: int) -> CascadeOut:
     """K3: the per-class entry of the TPU version (single-class calls). On
     the GPU classes are concurrent blocks either way, so it launches the
     same kernel as `cascade_match_classparallel`, with its own count."""

@@ -148,6 +148,7 @@ class CountingPipeline:
         self.last_trace = None  # path of the most recent --profile trace
         self.check_numerics = bool(getattr(args, "check_numerics", False))
         self.last_timer = None
+        self.frames_done = 0  # valid frames drained so far in the current video
 
     @staticmethod
     def get_cam_name(path: str) -> str:
@@ -209,6 +210,7 @@ class CountingPipeline:
         self.last_timer = timer
         rows = {"frames": [], "tracks": [], "labels": [], "boxes": []}
         num_frames = 0
+        self.frames_done = 0
         t_start = time.perf_counter()
         net_hw = self.net_hw(src_hw)
         # ship only the letterbox content rows when that is bit-exact
@@ -235,9 +237,8 @@ class CountingPipeline:
                 mask = touts.mask.cpu().numpy()  # [B, C, K]
                 ids = touts.ids.cpu().numpy()
                 boxes = touts.boxes.cpu().numpy()
-            if self.check_numerics and not np.isfinite(boxes[mask]).all():  # float boxes only; see check_step_finite
-                raise FloatingPointError(f"non-finite track boxes in batch at frame {frame_ids[0]}")
             num_frames += int(valid.sum())
+            self.frames_done = num_frames  # progress, readable from another thread
             b, c, k = np.nonzero(mask)
             if b.size:
                 rows["frames"].extend(np.asarray(frame_ids)[b].tolist())
@@ -245,26 +246,34 @@ class CountingPipeline:
                 rows["labels"].extend(c.tolist())
                 rows["boxes"].extend(boxes[b, c, k])
 
+        if step_mod.use_frame_graph(self.device):
+            # capture the tracker's frame step now: before the upload worker
+            # starts and outside a --profile trace
+            step_mod.frame_runner(hp, src_hw, self.device)
         profile_ctx = trace(self.profile_dir) if self.profile_dir else contextlib.nullcontext({})
         pending = None
-        with profile_ctx as traced:
-            for fdev, vdev, frame_ids, valid in prefetch(fetch, prep):
-                with timer.stage("dispatch"):
-                    states, det, touts = step_mod.pipeline_batch_step(
-                        self.yolo_params, self.reid_params, self.reid_stats, states,
-                        fdev, vdev, self.class_lut,
-                        ycfg=self.ycfg, hp=hp, image_size=net_hw, src_hw=src_hw,
-                        conf_thres=self.conf_thres, iou_thres=self.iou_thres,
-                        max_det=self.max_det, dtype=self.dtype,
-                        frames_format="letterboxed_yuv420",
-                    )
-                if self.check_numerics:
-                    check_step_finite(det, states, frame_ids[0])
+        try:
+            with profile_ctx as traced:
+                for fdev, vdev, frame_ids, valid in prefetch(fetch, prep):
+                    with timer.stage("dispatch"):
+                        states, det, touts = step_mod.pipeline_batch_step(
+                            self.yolo_params, self.reid_params, self.reid_stats, states,
+                            fdev, vdev, self.class_lut,
+                            ycfg=self.ycfg, hp=hp, image_size=net_hw, src_hw=src_hw,
+                            conf_thres=self.conf_thres, iou_thres=self.iou_thres,
+                            max_det=self.max_det, dtype=self.dtype,
+                            frames_format="letterboxed_yuv420",
+                        )
+                    if self.check_numerics:
+                        check_step_finite(det, states, frame_ids[0])
+                    if pending is not None:
+                        drain(pending)
+                    pending = (touts, frame_ids, valid)
                 if pending is not None:
                     drain(pending)
-                pending = (touts, frame_ids, valid)
-            if pending is not None:
-                drain(pending)
+        finally:
+            # this camera's captured step, its static state and its pool
+            step_mod.free_frame_runner(hp, src_hw, self.device)
         if self.profile_dir:
             self.last_trace = traced["path"]
             print(f"[profile] torch.profiler trace written to {self.last_trace}")

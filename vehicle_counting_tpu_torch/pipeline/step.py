@@ -5,12 +5,15 @@ Port of `vehicle_counting_tpu/pipeline/step.py` on the thin-upload
 
     I420 (content rows) -> planar u8 RGB -> YOLOv5 -> decode/NMS tail ->
     box restore -> class map -> ReID crops (kernel K1) + CNN ->
-    per-frame loop of the class-batched DeepSORT step (kernel K2)
+    frame scan of the class-batched DeepSORT step (kernel K2, or K4 per
+    stage on the staged route)
 
 One upload per batch and one small readback ([B, C, K] track rows).
-PyTorch runs eagerly, so the JAX `jit`/`scan` become plain calls and a
-Python loop over frames; the frame-independent tracker inputs are built
-for all B frames at once before that loop.
+The frame-independent tracker inputs are built for all B frames at once;
+the frame-recurrent step, which the JAX package runs as a `lax.scan`
+inside one `jit`, is on the card one captured CUDA graph replayed per
+frame (`tracking/graph.py::FrameRunner`), and on the CPU a plain Python
+loop over `frame_update`.
 """
 
 from __future__ import annotations
@@ -35,7 +38,55 @@ from vehicle_counting_tpu_torch.tracking.deepsort import (
     frame_inputs,
     frame_update,
 )
+from vehicle_counting_tpu_torch.tracking import tracker as tracker_mod
+from vehicle_counting_tpu_torch.tracking.graph import FrameRunner
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerOutputs
+
+# The frame scan's launch path, in the manner of
+# `tracker.FORCE_CASCADE_KERNEL`. None: CUDA tensors replay the captured
+# frame graph, CPU tensors run the eager loop; False: the eager loop on the
+# card too (for comparing the two). A capture that fails raises: there is
+# no fallback to the eager loop.
+USE_FRAME_GRAPH = None
+
+_RUNNERS = {}  # (hp, out_hw, device, association route) -> FrameRunner
+
+
+def _runner_key(hp: DeepSortParams, src_hw: Tuple[int, int], device):
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return hp, tuple(src_hw), device, tracker_mod._use_cascade_kernel(hp.tracker)
+
+
+def frame_runner(hp: DeepSortParams, src_hw: Tuple[int, int], device) -> FrameRunner:
+    """The captured frame step for this configuration, built at first use.
+    Each holds a static tracker state and its graph's memory pool until
+    `free_frame_runner` or `free_frame_runners` drops it."""
+    key = _runner_key(hp, src_hw, device)
+    runner = _RUNNERS.get(key)
+    if runner is None:
+        runner = _RUNNERS[key] = FrameRunner(hp, src_hw, key[2])
+    return runner
+
+
+def free_frame_runner(hp: DeepSortParams, src_hw: Tuple[int, int], device) -> None:
+    """Drop this configuration's captured frame step, on both association
+    routes, with its static state and pool (a directory of cameras with
+    different tracking configs would otherwise keep one per camera). A
+    state it handed out stays readable."""
+    key = _runner_key(hp, src_hw, device)
+    for route in (False, True):
+        _RUNNERS.pop(key[:3] + (route,), None)
+
+
+def free_frame_runners() -> None:
+    """Drop every captured frame step of the process."""
+    _RUNNERS.clear()
+
+
+def use_frame_graph(device) -> bool:
+    return USE_FRAME_GRAPH is not False and torch.device(device).type == "cuda"
 
 
 def detect_embed_core(yolo_params, reid_params, reid_stats, frames, frame_valid, class_lut, *,
@@ -77,8 +128,14 @@ def detect_embed_core(yolo_params, reid_params, reid_stats, frames, frame_valid,
 
 def tracker_scan(states, det, feats, *, hp: DeepSortParams, src_hw: Tuple[int, int]):
     """The frame-recurrent back: DeepSORT over the batch's frames in order.
-    Returns (states, TrackerOutputs with leaves [B, C, K, ...])."""
+    Returns (states, TrackerOutputs with leaves [B, C, K, ...]). On the
+    card (see `USE_FRAME_GRAPH`) the returned state is the frame runner's
+    own static state: `states` is copied in unless it is the state the
+    runner returned last, and is itself left untouched; clone the returned
+    state to keep a snapshot, since the next scan moves those buffers on."""
     inp = frame_inputs(feats, det["boxes"], det["scores"], det["classes"], det["valid"], hp)
+    if use_frame_graph(feats.device):
+        return frame_runner(hp, src_hw, feats.device).run(states, inp)
     outs = []
     for i in range(feats.shape[0]):
         states, out = frame_update(states, FrameInputs(*(x[i] for x in inp)), hp, src_hw)

@@ -236,8 +236,10 @@ def main(argv=None, *, src_hw=(720, 1280), size=640, variant="yolov5s"):
                         np.random.default_rng(8).normal(0, 2.0, size=(B, n_det, 4)), 0
                     )
                     bx = torch.from_numpy((base[None] + drift).astype(np.float32)).to(dev)
-                    # warm the tracker into confirmed steady state
-                    states, _ = scan(states, bx)
+                    # warm the tracker into confirmed steady state; a copy, so
+                    # every timed call starts from it (on the card the scan
+                    # returns the frame runner's own buffers, which move on)
+                    states = TrackerState(*(t.clone() for t in scan(states, bx)[0]))
                 else:
                     bx = boxes_churn
                 timed(name, lambda: scan(states, bx))

@@ -21,24 +21,35 @@ def association_problem(rng: np.random.Generator, c: int, k: int, max_age: int,
     """[C]-batched association operands like one tracker frame produces.
 
     kind: "random" (spread costs, gating, mixed ages), "ties" (costs from
-    three values, many above the threshold so the clamp ties them), or
+    three values, many above the threshold so the clamp ties them),
     "empty" (class 0 has no valid detection, class 1 no track, class 2 no
-    free detection after validity).
+    free detection after validity), or "steady" (a frame of an established
+    scene: K/8 tracks and as many detections per class, all but one
+    confirmed and seen last frame, each with one cheap detection).
     """
-    n_trk = rng.integers(0, k + 1, size=c)
-    n_det = rng.integers(0, k + 1, size=c)
+    steady = kind == "steady"
+    n_trk = np.full(c, max(2, k // 8)) if steady else rng.integers(0, k + 1, size=c)
+    n_det = n_trk if steady else rng.integers(0, k + 1, size=c)
     state = np.zeros((c, k), np.int32)  # 0 empty, 1 tentative, 2 confirmed
     tsu = np.zeros((c, k), np.int32)
+    track_slots = []
     for ci in range(c):
         slots = rng.permutation(k)[: n_trk[ci]]
+        track_slots.append(slots)
+        if steady:
+            state[ci, slots], tsu[ci, slots] = 2, 1
+            state[ci, slots[0]], tsu[ci, slots[1]] = 1, 2  # one tentative, one missed last frame
+            continue
         state[ci, slots] = rng.choice([1, 2, 2, 2], size=slots.size)
         tsu[ci, slots] = np.where(rng.random(slots.size) < 0.6, 1, rng.integers(1, max_age + 3, slots.size))
     track_id = np.where(state > 0, rng.permutation(c * k).reshape(c, k) + 1, 0).astype(np.int32)
     confirmed = state == 2
     lvl_of = np.where(confirmed & (tsu <= max_age), tsu - 1, IMAX).astype(np.int32)
     det_valid = np.zeros((c, k), bool)
+    det_slots = []
     for ci in range(c):
-        det_valid[ci, rng.permutation(k)[: n_det[ci]]] = True
+        det_slots.append(rng.permutation(k)[: n_det[ci]])
+        det_valid[ci, det_slots[ci]] = True
     if kind == "ties":
         gated = rng.choice(np.float32([0.05, 0.1, 0.5]), size=(c, k, k))
         iou = rng.choice(np.float32([0.2, 0.4, 0.9]), size=(c, k, k))
@@ -46,6 +57,10 @@ def association_problem(rng: np.random.Generator, c: int, k: int, max_age: int,
         gated = rng.uniform(0.0, 0.45, size=(c, k, k)).astype(np.float32)
         iou = rng.uniform(0.0, 1.0, size=(c, k, k)).astype(np.float32)
         gated = np.where(rng.random((c, k, k)) < 0.2, INFTY_COST, gated)
+    if steady:
+        for ci in range(c):  # every track has its own detection, well under the thresholds
+            gated[ci, track_slots[ci], det_slots[ci]] = rng.uniform(0.01, 0.1, n_trk[ci]).astype(np.float32)
+            iou[ci, track_slots[ci], det_slots[ci]] = rng.uniform(0.05, 0.3, n_trk[ci]).astype(np.float32)
     if kind == "empty":
         det_valid[0] = False
         state[1] = 0
@@ -75,6 +90,33 @@ def clamp_tie_problems(rng: np.random.Generator, n: int, s: int = 64, hi: int = 
         sub[rng.uniform(0, 1, (nr[i], nc[i])) < 0.3] = 0.2 + 1e-5
         costs[i, : nr[i], : nc[i]] = sub
     return costs, nr, nc
+
+
+def stage_problems(rng: np.random.Generator, n: int, k: int = 64, hi: int = 40, key_offset: int = 1 << 23):
+    """n one-class matching stages in masked form, as kernel K4's fused
+    stage takes them ([n, K, K] cost and [n, K] vectors): nr rows and nc
+    free detections (0 <= nr, nc < hi, so normal, flipped and empty stages)
+    at random slots; costs uniform with 30 % at exactly the clamp of
+    threshold 0.2 (ties) and one problem in eight all above it (every pair
+    rejected); row order keys with repeats (ties go to the lower slot);
+    detection keys unique and past `key_offset` (>= 2^22: beyond the
+    association kernel's packed range); some tracks matched already.
+    Returns a dict of numpy arrays named like `match_stage_batched`'s
+    arguments, threshold 0.2."""
+    cost = rng.uniform(0, 1, (n, k, k)).astype(np.float32)
+    cost[rng.uniform(0, 1, (n, k, k)) < 0.3] = np.float32(0.2 + 1e-5)
+    cost[::8] = np.float32(0.9)
+    rows = np.zeros((n, k), bool)
+    det_free = np.zeros((n, k), bool)
+    for i in range(n):
+        rows[i, rng.permutation(k)[: rng.integers(0, hi)]] = True
+        det_free[i, rng.permutation(k)[: rng.integers(0, hi)]] = True
+    row_order = rng.integers(1, max(2, k // 2), (n, k)).astype(np.int32)
+    det_key = (np.stack([rng.permutation(k) for _ in range(n)]) + key_offset).astype(np.int32)
+    track_col = np.where(~rows & (rng.uniform(0, 1, (n, k)) < 0.2), rng.integers(0, k, (n, k)), -1).astype(np.int32)
+    stage_base = rng.integers(1, 32, n).astype(np.int32)
+    return {"cost": cost, "rows": rows, "det_free": det_free, "track_col": track_col, "threshold": 0.2,
+            "row_order": row_order, "det_key": det_key, "stage_base": stage_base}
 
 
 def reid_block_params(rng: np.random.Generator, c: int = 64):

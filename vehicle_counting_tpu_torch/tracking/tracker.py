@@ -13,13 +13,15 @@ linear_assignment.py, iou_matching.py):
     revealed on confirmation (`tracker_feature_post`);
   * association: matching cascade + IoU stage, one launch of kernel K2
     for all classes (`_associate` -> ops/cascade.py), or the staged route
-    with one launch of kernel K4 per stage (`_associate_staged` ->
-    ops/assignment.py) where K2's key range ends or the switch says so;
+    with one launch of kernel K4's fused stage per stage
+    (`_associate_staged` -> ops/assignment.py) past the reference's key
+    range or slot count for the fused kernel, or where the switch says so;
   * a class with no raw detection this frame does not advance.
 
-On the card the K2 route's per-frame step is sync-free: data-dependent
-choices are masked selects and scatters, never host branches. The staged
-route reads one number per frame, the count of cascade stages to run.
+On the card the per-frame step is sync-free on both routes:
+data-dependent choices are masked selects and scatters, never host
+branches, and the staged route runs a fixed schedule of stages. That is
+what lets `tracking/graph.py` capture the step in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -27,16 +29,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from vehicle_counting_tpu_torch.ops.boxes import tlwh_iou_matrix, tlwh_to_xyah
-from vehicle_counting_tpu_torch.ops.assignment import solve_uniform_batched
+from vehicle_counting_tpu_torch.ops.assignment import MAX_S, match_stage_batched
 from vehicle_counting_tpu_torch.ops.cascade import (
     IMAX,
-    KEY_LIMIT,
-    MAX_K,
-    _clamp_value,
     cascade_match_batched,
     cascade_match_classparallel,
 )
@@ -141,64 +139,29 @@ def _appearance_cost(st: TrackerState, feat: torch.Tensor, hp: TrackerParams) ->
     return dist.amin(dim=2)
 
 
-def _match_stage(cost, rows, det_free, track_col, threshold, row_order, det_key, stage_base):
-    """One min_cost_matching pass for [C] classes at once (all [C, K]).
-
-    Counterpart of the JAX `tracker.py::_match_stage`: rows and free
-    detections are ranked stably and the clamped cost compacted with
-    gathers (exact), so the solver sees the reference's row and column
-    orders; one K4 launch solves every class. Rejected matches demote their
-    detection to stage_base * K + (rejection rank in row order); stage_base
-    is [C]. A class with no row or no free detection is left as it was.
-    Returns (det_free, track_col, det_key).
-    """
-    c, k = rows.shape
-    dev = rows.device
-    nr = rows.sum(-1)
-    nc = det_free.sum(-1)
-    do = (nr > 0) & (nc > 0)
-    nr, nc = torch.where(do, nr, 0), torch.where(do, nc, 0)  # a no-op inserts nothing
-    imax = torch.full_like(row_order, IMAX)
-    row_perm = torch.argsort(torch.where(rows, row_order, imax), dim=-1, stable=True)
-    col_perm = torch.argsort(torch.where(det_free, det_key, imax), dim=-1, stable=True)
-    live = rows[:, :, None] & det_free[:, None, :]
-    clamped = torch.clamp(cost, max=_clamp_value(threshold))
-    cm = torch.where(live, clamped, torch.full_like(clamped, BIG))
-    c2 = torch.gather(cm, 1, row_perm[:, :, None].expand(c, k, k))
-    c2 = torch.gather(c2, 2, col_perm[:, None, :].expand(c, k, k))
-    r2c = solve_uniform_batched(c2, nr, nc)  # permuted row -> permuted col
-
-    a = torch.arange(k, device=dev)
-    paired = (a < nr[:, None]) & (r2c >= 0) & (r2c < nc[:, None])
-    r2c_c = torch.clamp(r2c, 0, k - 1)
-    cost_at = torch.gather(c2, 2, r2c_c[:, :, None])[:, :, 0]
-    accept = paired & (cost_at <= np.float32(threshold))
-    reject = paired & ~accept
-    slot_col = torch.gather(col_perm, 1, r2c_c)
-
-    def put(dst, idx, mask, val):  # dst[c, idx] = val where mask; k is a dump slot
-        ext = torch.cat([dst, dst[:, :1]], 1)
-        ext.scatter_(1, torch.where(mask, idx, k), val.to(dst.dtype))
-        return ext[:, :k]
-
-    track_col = put(track_col, row_perm, accept, slot_col)
-    det_free = put(det_free, slot_col, accept, torch.zeros_like(accept))
-    rank = torch.cumsum(reject.to(torch.int64), -1) - 1
-    det_key = put(det_key, slot_col, reject, stage_base[:, None] * k + rank)
-    return det_free, track_col, det_key
-
-
 def _associate_staged(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
-                      det_valid, det_order, hp: TrackerParams):
+                      det_valid, det_order, hp: TrackerParams, fixed_schedule=None):
     """Staged association for [C] classes -> (det_free, track_col, det_key).
 
-    Counterpart of the JAX `tracker.py::_associate_xla`: one `_match_stage`
-    per occupied cascade level, each class walking its own levels in
-    ascending order (a class out of levels sits its stage out), then the
-    IoU stage. One host read per frame: the number of cascade stages.
+    Counterpart of the JAX `tracker.py::_associate_xla`: one matching stage
+    (JAX `_match_stage`; here `ops/assignment.py::match_stage_batched`: on
+    the card one launch of kernel K4's fused stage, in place on det_free,
+    track_col and det_key; on the CPU its plain version) per occupied
+    cascade level, each class walking its own levels in ascending order (a
+    class out of levels sits its stage out), then the IoU stage.
+
+    The number of cascade stages: a class has at most min(max_age, K)
+    distinct levels, and a stage whose class has no row or no free
+    detection changes nothing. With `fixed_schedule` (None: on the card)
+    that many stages always run and nothing is read back from the device,
+    so the step can be captured in a CUDA graph; otherwise (on the CPU) the
+    largest count of occupied levels is read and only those stages run.
+    The two give the same result.
     """
     c, k = lvl_of.shape
     dev = lvl_of.device
+    if fixed_schedule is None:
+        fixed_schedule = dev.type == "cuda"
     # per class, its distinct occupied levels in ascending order, IMAX after
     srt = torch.sort(lvl_of, dim=-1).values
     first = torch.ones_like(srt, dtype=torch.bool)
@@ -206,35 +169,45 @@ def _associate_staged(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
     first &= srt != IMAX
     levels = torch.full((c, k + 1), IMAX, dtype=lvl_of.dtype, device=dev)
     levels.scatter_(1, torch.where(first, torch.cumsum(first.to(torch.int64), -1) - 1, k), srt)
-    n_stages = int(first.sum(-1).max())
+    n_stages = min(hp.max_age, k) if fixed_schedule else int(first.sum(-1).max())
+
+    # every stage's rows and base at once: [S, C, K] and [S, C]
+    level = levels[:, :n_stages].t().contiguous()
+    occupied = level != IMAX
+    rows = (lvl_of[None] == level[:, :, None]) & occupied[:, :, None]
+    stage_base = torch.where(occupied, level + 1, 0)
 
     det_free = det_valid.clone()
     track_col = torch.full((c, k), -1, dtype=torch.int32, device=dev)
     det_key = det_order.clone()
     for i in range(n_stages):
-        level = levels[:, i]
-        rows = (lvl_of == level[:, None]) & (level != IMAX)[:, None]
-        det_free, track_col, det_key = _match_stage(
-            gated, rows, det_free, track_col, hp.max_dist,
-            track_id, det_key, 1 + level.to(torch.int64),
+        det_free, track_col, det_key = match_stage_batched(
+            gated, rows[i], det_free, track_col, hp.max_dist, track_id, det_key, stage_base[i],
         )
     iou_rows = tentative | ((lvl_of == 0) & (track_col < 0))
-    return _match_stage(
+    return match_stage_batched(
         iou_cost, iou_rows, det_free, track_col, hp.max_iou_distance,
-        iou_order, det_key, torch.full((c,), 1 + hp.max_age, dtype=torch.int64, device=dev),
+        iou_order, det_key, torch.full((c,), 1 + hp.max_age, dtype=torch.int32, device=dev),
     )
 
 
 # Counterpart of the JAX `tracker.py::FORCE_PALLAS_CASCADE`. None: auto
-# (kernel K2 whenever its key range allows); False: force the staged route
-# (kernel K4 per stage); True: K2, within the same key-range gate.
+# (kernel K2 within the gates below); False: force the staged route (kernel
+# K4 per stage); True: K2, within the same gates.
 FORCE_CASCADE_KERNEL = None
+
+# The routing gates are the TPU kernel's: its packed argmin word held keys
+# below 2^22 (demoted det keys reach (max_age + 2) * K) and it held 256
+# slots. The CUDA kernel ranks its keys before packing and has neither
+# limit (`ops/cascade.py::MAX_K`), so the gates decide only which of two
+# equal routes a configuration takes, the same one as in the JAX package.
+KEY_LIMIT = 1 << 22
+CASCADE_MAX_K = 256
 
 
 def _use_cascade_kernel(hp: TrackerParams) -> bool:
     """The JAX `_cascade_kernel_mode` decision: K2 or the staged route."""
-    # demoted det keys reach (max_age + 2) * K, past K2's packed key range
-    if (hp.max_age + 2) * hp.capacity >= KEY_LIMIT:
+    if (hp.max_age + 2) * hp.capacity >= KEY_LIMIT or hp.capacity > CASCADE_MAX_K:
         return False
     return FORCE_CASCADE_KERNEL is not False
 
@@ -249,22 +222,17 @@ def _associate(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
     versions on both routes.
     """
     c, k = lvl_of.shape
-    if k > MAX_K:
-        raise ValueError(f"association takes K <= {MAX_K}, got {k}")
     if not _use_cascade_kernel(hp):
+        if k > MAX_S:
+            raise ValueError(f"the staged association takes K <= {MAX_S} (kernel K4's width), got {k}")
         return _associate_staged(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
                                  det_valid, det_order, hp)
     fn = cascade_match_classparallel if c > 1 else cascade_match_batched
-    det_free, det_key, out_row = fn(
+    out = fn(
         gated, iou_cost, lvl_of, tentative, track_id, iou_order, det_valid, det_order,
         hp.max_dist, hp.max_iou_distance, max_age=hp.max_age,
     )
-    # invert det slot -> track slot into per-track matched column
-    dev = out_row.device
-    track_col = torch.full((c, k + 1), -1, dtype=torch.int32, device=dev)
-    tgt = torch.where(out_row >= 0, out_row, k).long()
-    track_col.scatter_(1, tgt, torch.arange(k, dtype=torch.int32, device=dev).expand(c, k).contiguous())
-    return det_free, track_col[:, :k], det_key
+    return out.det_free, out.track_col, out.det_key
 
 
 def tracker_precompute(st: TrackerState, tlwh, feat, det_valid, hp: TrackerParams):
