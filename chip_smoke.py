@@ -14,6 +14,10 @@ Phases, each fatal on failure:
             (the step's embed chunk; both routes of the kernel, staged and
             direct, must run) and stage_bench's single call over 3840
             crops; device kernels per call (exactly one) and device time;
+  K1 720p   K1 on the raw-RGB path's crop source: the planar copy of 128
+            raw 720x1280 frames, 3840 crops with edge, frame-sized and
+            one-pixel boxes, array-equal, both routes; the copy's time and
+            bound beside K1's;
   K2        association kernel (and its per-class entry K3) vs the plain
             version, bitwise on all four outputs, at C=4, K=64, max_age=30
             (random, tie, empty, steady) and as a node of a captured CUDA
@@ -21,6 +25,8 @@ Phases, each fatal on failure:
             clock64 split; then past the tracker's routing gates: K = 320
             and detection keys >= 2^23 (K = 1023 where the kernel's
             registers allow 1024 threads);
+  K3        the per-class entry alone on [1, 64] problems (what the scan
+            mode launches), bitwise; eager and graph-node ms, bound;
   K4        batched assignment kernel vs its plain version, bitwise, on 300
             clamp-tie problems at S=64 (one launch), a [4, 64, 64] batch and
             S=256; alone and inside the batched transpose rule; its fused
@@ -56,16 +62,25 @@ Phases, each fatal on failure:
   layer-1   K6's stand-alone path (no detector calls it, as in the JAX
             package): yolov5s layer 0 on 128 frames, then K6 as layer 1,
             held against the detector's own layer 1;
+  detect-only  the CLI with --detect_only on the 256-frame video: the
+            detections CSV's schema and rows, frames/s, no tracker kernel;
+  raw-rgb   the CLI with thin_upload: false on 128 frames (CSV and MP4, K1
+            and K2 launched), then thin and raw uploads in turns, frames/s;
   parity    one f32 step on the card vs the same step on the CPU (plain
             versions): detections and track ids equal; then the same step
             on the card through the staged route (K4) vs the K2 route:
-            track ids, mask and boxes equal;
+            track ids, mask and boxes equal; then card == CPU at f32 for
+            detect_only_step and the raw_rgb / letterboxed_rgb steps;
   graph     the frame graph vs the eager loop on the card over the 256-frame
             video, both association routes: every tracker state leaf and
             output bitwise-equal; the K2 / K4 kernels one replay shows in
             the card's trace against the counts the runner adds per replay;
             then `tracker_scan` at B=128 in steady state with the graph
             off / on / on / off, ms/frame;
+  scan      class_mode "scan" over the same frames: graph == eager, bitwise,
+            both routes; scan == batched on the track outputs; K3 launched
+            C times per frame (C K3 kernels in one replay's trace), no K2;
+            batched against scan ms/frame;
   stage     stage_bench at B=128 (reid bf16, chunks of 128), every stage;
   bench     bench with a short budget; its metric line is parsed;
   profile   the CLI with --profile on 128 frames, then profile_summary on
@@ -587,37 +602,53 @@ def embed_ab(dev, n_frames=128, per_frame=30):
 def device_events(fn):
     """(name, ms) of each kernel and copy that one call of fn runs on the
     card: a warm-up call, then one call under utils/profiling.trace, read
-    back from the trace file by tools/profile_summary. A capture does not
-    record the launches of its first microseconds, so it opens with a
-    throw-away op and the call sits in a named region: only device events
-    that start inside the region count. A trace that shows none is taken
-    again; the third empty one raises."""
+    back from the trace file. The call sits in a named region, and a
+    device event counts when the host call that launched it (its
+    correlation id) lies in the region, or when it starts inside the
+    region. The profiler maps the device's clock onto the host's and the
+    mapping drifts as the process runs: kernels come out tens of
+    milliseconds before their launch (warned "GPU op timestamp <
+    runtime timestamp" by the profiler), and it drops device events that
+    come out before the trace began. So the region opens only after a
+    pause inside the trace; a trace that still shows no device event of
+    the region is taken again with a pause twice as long, and the fifth
+    empty one raises, with what the traces held."""
     import torch
 
-    from vehicle_counting_tpu_torch.tools.profile_summary import load_device_events
+    from vehicle_counting_tpu_torch.tools.profile_summary import DEVICE_CATS
     from vehicle_counting_tpu_torch.utils.profiling import trace
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without the region's device events: take another
+    seen = []
+    for pause in (0.25, 0.5, 1.0, 2.0, 4.0):
         with tempfile.TemporaryDirectory() as tmp:
             with trace(tmp) as t:
                 torch.zeros(8, device="cuda").add_(1.0)
                 torch.cuda.synchronize()
-                time.sleep(0.005)
+                time.sleep(pause)
                 with torch.profiler.record_function("vct_device_events_region"):
                     fn()
                     torch.cuda.synchronize()
             with open(t["path"]) as f:
                 data = json.load(f)
-            start = [float(e["ts"]) for e in (data["traceEvents"] if isinstance(data, dict) else data)
-                     if e.get("name") == "vct_device_events_region" and e.get("ph") == "X"]
-            if not start:
-                raise AssertionError("device_events: the trace holds no region marker")
-            events = [(e.name, e.dur_us / 1e3) for e in load_device_events(t["path"]) if e.ts_us >= min(start)]
+        raw = [e for e in (data["traceEvents"] if isinstance(data, dict) else data) if e.get("ph") == "X"]
+        region = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in raw
+                  if e.get("name") == "vct_device_events_region"]
+        if not region:
+            raise AssertionError("device_events: the trace holds no region marker")
+        start, stop = min(r[0] for r in region), max(r[1] for r in region)
+        launched = {e.get("args", {}).get("correlation") for e in raw
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver") and start <= float(e["ts"]) <= stop}
+        launched.discard(None)
+        device = sorted((e for e in raw if e.get("cat") in DEVICE_CATS), key=lambda e: float(e["ts"]))
+        events = [(str(e.get("name", "")), float(e.get("dur", 0.0)) / 1e3) for e in device
+                  if e.get("args", {}).get("correlation") in launched or start <= float(e["ts"]) <= stop]
         if events:
             return events
-    raise AssertionError("device_events: three traces in a row show no device event inside the region")
+        seen.append(f"pause {pause} s: {len(device)} device events, {len(launched)} launches in the region, first "
+                    f"device event at {float(device[0]['ts']) - start if device else None} us from the region's start")
+    raise AssertionError(f"device_events: five traces in a row show no device event of the region: {seen}")
 
 
 def check_k6(dev):
@@ -823,12 +854,15 @@ def calibrate(dev, path):
 
 
 def kernel_counters():
-    """{kernel: [wrappers that launch it]} of the step's kernels."""
+    """{kernel: [wrappers that launch it]} of the step's kernels. K2
+    ("cascade", all classes in one launch) and its per-class entry K3
+    ("cascade_k3", the scan mode's association) are counted apart."""
     from vehicle_counting_tpu_torch.ops import assignment, cascade, crops, reid_block
 
     return {
         "crops": [crops.gather_crops_batch],
-        "cascade": [cascade.cascade_match_classparallel, cascade.cascade_match_batched],
+        "cascade": [cascade.cascade_match_classparallel],
+        "cascade_k3": [cascade.cascade_match_batched],
         "insert_rows": [assignment.insert_rows_batched],
         "match_stage": [assignment.match_stage_batched],
         "reid_block": [reid_block.reid_block64],
@@ -846,10 +880,11 @@ def read_counts(counters):
 
 
 def run_pipeline(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES, out="out", extra_args=(),
-                 reid_checkpoint=None):
+                 reid_checkpoint=None, config_over=None):
     """The CLI main path; returns (frames/s, the kernel counts of that run,
     the CSV's rows). `mapping` None leaves the CLI's default class map,
-    `conf` None the packaged min_conf."""
+    `conf` None the packaged min_conf; `config_over` sets configs.yaml
+    keys (e.g. thin_upload)."""
     import torch
 
     from vehicle_counting_tpu_torch import run
@@ -862,6 +897,8 @@ def run_pipeline(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES, out="o
     config, cam_config = run.load_configs(args)  # the packaged defaults
     if conf is not None:
         config.min_conf = conf
+    for key, value in (config_over or {}).items():
+        setattr(config, key, value)
     cam_config.zone_path = zones
     if reid_checkpoint:
         cam_config.checkpoint = reid_checkpoint
@@ -1029,7 +1066,7 @@ def check_parity(dev, path):
     from vehicle_counting_tpu_torch.pipeline.step import detect_embed_core, tracker_scan
     from vehicle_counting_tpu_torch.tracking import tracker
     from vehicle_counting_tpu_torch.models.reid import init_reid
-    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, decode_predictions, init_yolov5, yolov5_forward_nchw
+    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, init_yolov5
     from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, host_letterbox_yuv420, yuv420_content_to_full, yuv420_to_rgb_u8_planar
     from vehicle_counting_tpu_torch.pipeline.step import pipeline_batch_step
     from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
@@ -1043,26 +1080,10 @@ def check_parity(dev, path):
     yp = init_yolov5(torch.Generator().manual_seed(0), cfg)
     rp, rs = init_reid(torch.Generator().manual_seed(1))
     yuv = torch.from_numpy(host_letterbox_yuv420(first_batch(path, b), net, content_only=True))
-    with torch.no_grad():
-        rgb = yuv420_to_rgb_u8_planar(yuv420_content_to_full(yuv, SRC_HW, net)).float() / 255.0
-        heads = [h.permute(0, 2, 3, 1) for h in yolov5_forward_nchw(yp, rgb)]
-        dec = decode_predictions(heads, cfg)
-    s_all, c_all = dec["scores"].numpy().ravel(), dec["classes"].numpy().ravel()
-    s = np.sort(np.unique(s_all))[::-1]
-    n = 20 * b
-    gaps = s[n // 3 : 3 * n] - s[n // 3 + 1 : 3 * n + 1]
-    i = n // 3 + int(np.argmax(gaps))
-    conf = float((s[i] + s[i + 1]) / 2)
-    top4 = [c for c, _ in collections.Counter(c_all[s_all > conf].tolist()).most_common(4)]
-    lut = np.full(80, -1, np.int32)
-    lut[top4] = np.arange(len(top4))
+    rgb = yuv420_to_rgb_u8_planar(yuv420_content_to_full(yuv, SRC_HW, net)).float() / 255.0
+    conf, lut, gap = _gap_conf(yp, cfg, rgb, 20 * b)
     hp = DeepSortParams(tracker=TrackerParams(), num_classes=4)
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
+    to = _tree_to
 
     def step(d):
         with torch.no_grad():
@@ -1077,7 +1098,6 @@ def check_parity(dev, path):
         det, tout = step(d)
         outs[str(d)] = ({k: v.cpu() for k, v in det.items()}, [x.cpu() for x in tout])
     (dc, tc), (dg, tg) = outs["cpu"], outs[str(dev)]
-    gap = float(s[i] - s[i + 1])
     if not torch.equal(dc["valid"], dg["valid"]) or not torch.equal(dc["classes"], dg["classes"]):
         raise AssertionError("parity: detections differ between card and CPU")
     box_err = float((dc["boxes"] - dg["boxes"]).abs().max())
@@ -1264,7 +1284,353 @@ def check_frame_graph(dev, path, conf, mapping):
               f"{np.median(t['off']):.4f}), on {[round(v, 4) for v in t['on']]} (min {min(t['on']):.4f}, median "
               f"{np.median(t['on']):.4f})")
     step_mod.free_frame_runners()
-    return {"ab": ab, "launches_k2_route": k2_l, "launches_staged_route": st_l, "replay_in_trace": measured}
+    return {"ab": ab, "launches_k2_route": k2_l, "launches_staged_route": st_l, "replay_in_trace": measured,
+            "batches": batches, "hp": hp, "runs": runs}
+
+
+def check_k3(dev):
+    """K3, the per-class entry of K2's kernel, which the scan mode's
+    association launches once per class per frame: bitwise against the
+    plain version on [1, 64] problems (random, ties, empty, steady); ms per
+    launch eager and as a node of a captured CUDA graph on a steady
+    [1, 64, 64] problem (K/8 tracks and detections); its bound."""
+    import torch
+
+    from vehicle_counting_tpu_torch.ops import cascade
+    from vehicle_counting_tpu_torch.testing import association_problem
+
+    names = ["gated", "iou", "lvl_of", "tentative", "track_id", "iou_order", "det_valid", "det_order"]
+    rng = np.random.default_rng(SEED + 30)
+    n_cases, t_plain = 0, []
+    for kind in ("random", "ties", "empty", "steady"):
+        for _ in range(2):
+            pr3 = association_problem(rng, 3, 64, 30, kind)
+            for ci in range(3):  # each class of a [3, 64] problem as a problem of its own
+                cpu = [torch.from_numpy(np.ascontiguousarray(pr3[n][ci : ci + 1])) for n in names]
+                got = cascade.cascade_match_batched(*(x.to(dev) for x in cpu), 0.2, 0.6, max_age=30)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = cascade.cascade_match_batched(*cpu, 0.2, 0.6, max_age=30)
+                t_plain.append((time.perf_counter() - t0) * 1e3)
+                for field, g, w in zip(want._fields, got, want):
+                    if not torch.equal(g.cpu(), w):
+                        raise AssertionError(f"K3 differs from the plain version ({kind} case): {field}")
+                n_cases += 1
+    pr = association_problem(np.random.default_rng(SEED + 31), 3, 64, 30, "steady")
+    gpu = [torch.from_numpy(np.ascontiguousarray(pr[n][:1])).to(dev) for n in names]
+
+    def launch():
+        return cascade.cascade_match_batched(*gpu, 0.2, 0.6, max_age=30)
+
+    t_k = cuda_ms(launch, 50)
+    t_node = graph_node_ms(launch)
+    t_k2 = cuda_ms(launch, 50)
+    bd = bound(nbytes(*gpu, *launch()), 2 * int(gpu[6].sum()) * 64 * 64, F32_FLOPS)
+    print(f"K3 bitwise-equal on {n_cases} [1, 64] problems; steady [1, 64, 64] problem: eager wrapper "
+          f"{t_k:.4f}/{t_k2:.4f} ms, graph node {t_node:.4f} ms; plain (host CPU) median {np.median(t_plain):.2f} ms; "
+          f"bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}): a dependent chain, the launch floor is its real bound")
+    return {"max_abs_err": 0.0, "ms": min(t_k, t_k2), "graph_node_ms": t_node, "plain_ms": float(np.median(t_plain)),
+            **bd, "library_ms": None}
+
+
+def check_k1_source(dev, b=128):
+    """K1 where the raw-RGB path drives it: the crop source is the raw
+    frames at source resolution, [128, 720, 1280, 3] u8 interleaved, so K1
+    reads their planar copy [128, 3, 720, 1280] (`ops/crops.py::
+    planar_copy`, one u8 transpose per batch) with boxes in source pixels
+    and no letterbox transform. 3840 crops (128 frames x 30 seed-3 boxes)
+    with frame-sized, edge, one-pixel and line boxes among them:
+    array-equal to the plain version, both routes run (bands that do not
+    fit the shared-memory stage read from global memory), the transpose's
+    time and bound beside K1's."""
+    import torch
+
+    from vehicle_counting_tpu_torch.benchmarks.load import crop_gather_inputs, synthetic_boxes
+    from vehicle_counting_tpu_torch.ops import crops
+
+    h, w = SRC_HW
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    raw = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8, device=dev, generator=gen)
+    planar = crops.planar_copy(raw)
+    churn = torch.from_numpy(synthetic_boxes(3, b, 300, SRC_HW).astype(np.float32)).to(dev)
+    fidx, boxes, valid = crop_gather_inputs(churn, 30, 1.0, 0.0, 0.0)
+    edge = [[0, 0, w, h], [-1, -1, w + 1, h + 1], [0.5, 0.5, w - 0.5, h - 0.5], [w - 1, h - 1, w, h], [5, 5, 5, 5],
+            [10.7, 20.2, 11.9, 21.1], [0, h / 2, w, h / 2 + 1], [w / 2, 0, w / 2 + 1, h]]
+    boxes[: len(edge)] = torch.tensor(edge, dtype=torch.float32, device=dev)
+    args = (planar, fidx, boxes, valid)
+    got = crops.gather_crops_batch(*args)
+    torch.cuda.synchronize()
+    want = crops.gather_crops_batch_plain(*args)
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"K1 differs from its plain version on the raw 720x1280 source: max |diff| {err}")
+    staged = torch.zeros((), dtype=torch.int32, device=dev)
+    if not torch.equal(crops._launch(*args, staged_count=staged), want):
+        raise AssertionError("K1 differs from its plain version on the raw 720x1280 source (counted launch)")
+    n_staged, n_valid = int(staged), int(valid.sum())
+    if not 0 < n_staged < n_valid:
+        raise AssertionError(f"K1 at 720x1280: {n_staged} of {n_valid} crops staged: both routes must run")
+    t_tr = cuda_ms(lambda: crops.planar_copy(raw), 10)
+    t_plain = cuda_ms(lambda: crops.gather_crops_batch_plain(*args), 3)
+    t_k = cuda_ms(lambda: crops.gather_crops_batch(*args), 20)
+    t_k2 = cuda_ms(lambda: crops.gather_crops_batch(*args), 20)
+    t_plain2 = cuda_ms(lambda: crops.gather_crops_batch_plain(*args), 3)
+    t_tr2 = cuda_ms(lambda: crops.planar_copy(raw), 10)
+    x1, y1, x2, y2 = (v[valid].long() for v in crops.crop_boxes_to_bounds(boxes, h, w))
+    src = int((3 * torch.clamp(x2 - x1 + 1, min=1) * torch.clamp(y2 - y1 + 1, min=1)).sum())
+    bd = bound(src + nbytes(boxes, fidx, valid, got), 16 * got.numel(), F32_FLOPS)
+    bd_tr = bound(2 * nbytes(raw), 0, F32_FLOPS)
+    print(f"K1 array-equal over {got.shape[0]} crops of [{b}, 3, {h}, {w}] frames (the raw-RGB crop source); "
+          f"{n_staged} of {n_valid} crops staged in shared memory, {n_valid - n_staged} direct; wrapper "
+          f"{t_k:.4f}/{t_k2:.4f} ms, plain {t_plain:.4f}/{t_plain2:.4f} ms, bound {bd['bound_ms']:.5f} ms "
+          f"({bd['bound_by']}); the planar copy of the batch ({nbytes(raw) / 1e6:.1f} MB read and written) "
+          f"{t_tr:.4f}/{t_tr2:.4f} ms, bound {bd_tr['bound_ms']:.5f} ms")
+    return {"shape": [b, 3, h, w], "crops": int(got.shape[0]), "max_abs_err": err, "ms": min(t_k, t_k2),
+            "plain_ms": min(t_plain, t_plain2), **bd, "library_ms": None, "staged": n_staged,
+            "direct": n_valid - n_staged, "transpose_ms": min(t_tr, t_tr2), "transpose_bound_ms": bd_tr["bound_ms"]}
+
+
+def run_detect_only(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES):
+    """The CLI with --detect_only: {cam}_detections.csv with its schema, a
+    row count, frames/s; no tracker kernel may launch. Returns (frames/s,
+    launches, rows)."""
+    import pandas as pd
+    import torch
+
+    from vehicle_counting_tpu_torch import run
+
+    out_dir = os.path.join(tmp, "out_detect_only")
+    args = run.parser.parse_args(["--input_path", path, "--output_path", out_dir, "--device", str(dev),
+                                  "--mapping", json.dumps(mapping), "--detect_only"])
+    config, cam_config = run.load_configs(args)
+    config.min_conf = conf
+    cam_config.zone_path = zones
+    counters = kernel_counters()
+    zero_counts(counters)
+    (res,) = run.main(args, config, cam_config)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    df = pd.read_csv(res["csv"])
+    cols = ["frame_id", "x1", "y1", "x2", "y2", "score", "label"]
+    if list(df.columns) != cols or not res["csv"].endswith("_detections.csv"):
+        raise AssertionError(f"detect-only CSV {res['csv']}: columns {list(df.columns)}")
+    if res["frames"] != n_frames or not len(df) or not df.label.between(0, len(mapping) - 1).all():
+        raise AssertionError(f"detect-only: {res['frames']} frames, {len(df)} rows, labels {sorted(set(df.label))}")
+    if not np.isfinite(df[cols[1:6]].to_numpy()).all() or not (df.score > 0).all():
+        raise AssertionError("detect-only: a non-finite value or a non-positive score in the CSV")
+    if any(launches.values()):
+        raise AssertionError(f"detect-only launched tracker / ReID kernels: {launches}")
+    print(f"detect-only CLI: {res['frames']} frames, {res['fps']:.2f} frames/s (cold, model init outside), "
+          f"{len(df)} rows over {df.frame_id.nunique()} frames, {df.groupby('frame_id').size().mean():.1f} per frame")
+    return res["fps"], launches, len(df)
+
+
+def _gap_conf(yp, cfg, imgs, n):
+    """A threshold in the widest gap of the CPU's anchor scores around the
+    n-th best (so neither side sits near it), and the 4 classes most
+    detected above it as a LUT."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.yolo import decode_predictions, yolov5_forward_nchw
+
+    with torch.no_grad():
+        heads = [h.permute(0, 2, 3, 1) for h in yolov5_forward_nchw(yp, imgs)]
+        dec = decode_predictions(heads, cfg)
+    s_all, c_all = dec["scores"].numpy().ravel(), dec["classes"].numpy().ravel()
+    s = np.sort(np.unique(s_all))[::-1]
+    gaps = s[n // 3 : 3 * n] - s[n // 3 + 1 : 3 * n + 1]
+    i = n // 3 + int(np.argmax(gaps))
+    conf = float((s[i] + s[i + 1]) / 2)
+    top4 = [c for c, _ in collections.Counter(c_all[s_all > conf].tolist()).most_common(4)]
+    lut = np.full(80, -1, np.int32)
+    lut[top4] = np.arange(len(top4))
+    return conf, lut, float(s[i] - s[i + 1])
+
+
+def _tree_to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, d) for v in tree]
+    return tree.to(d)
+
+
+def check_front_parity(dev, path):
+    """Card == CPU at f32 (yolov5s, B=8, the first frames of the smoke
+    video, a threshold in a gap of the CPU's scores) for the slice's
+    fronts: `detect_only_step` on the content-row I420 upload (detections),
+    and `pipeline_batch_step` on the raw_rgb and letterboxed_rgb uploads
+    (detections and track ids)."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.reid import init_reid
+    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, init_yolov5
+    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, host_letterbox, host_letterbox_yuv420, letterbox
+    from vehicle_counting_tpu_torch.pipeline.step import _i420_pixels, detect_only_step, pipeline_batch_step
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = 8
+    net = autoshape_hw(SRC_HW, 640)
+    cfg = YoloConfig(VARIANT, 80)
+    yp = init_yolov5(torch.Generator().manual_seed(0), cfg)
+    rp, rs = init_reid(torch.Generator().manual_seed(1))
+    frames = first_batch(path, b)
+    yuv = torch.from_numpy(host_letterbox_yuv420(frames, net, content_only=True))
+    kw = dict(image_size=net, src_hw=SRC_HW, iou_thres=0.45, max_det=300, dtype=torch.float32)
+    res = {}
+    conf, _, gap = _gap_conf(yp, cfg, _i420_pixels(yuv, SRC_HW, net).float() / 255.0, 20 * b)
+    dets = {}
+    for d in ("cpu", dev):
+        with torch.no_grad():
+            dets[str(d)] = {k: v.cpu() for k, v in detect_only_step(_tree_to(yp, d), yuv.to(d), ycfg=cfg,
+                                                                     conf_thres=conf, **kw).items()}
+    dc, dg = dets["cpu"], dets[str(dev)]
+    if not (torch.equal(dc["valid"], dg["valid"]) and torch.equal(dc["classes"], dg["classes"])):
+        raise AssertionError("detect-only: detections differ between card and CPU")
+    res["detect_only"] = {"detections": int(dc["valid"].sum()), "box_err": float((dc["boxes"] - dg["boxes"]).abs().max()),
+                          "gap": gap}
+    hp = DeepSortParams(tracker=TrackerParams(), num_classes=4)
+    for fmt in ("raw_rgb", "letterboxed_rgb"):
+        if fmt == "raw_rgb":
+            up = torch.from_numpy(frames)
+            imgs = letterbox(up, net).permute(0, 3, 1, 2)
+        else:
+            up = torch.from_numpy(host_letterbox(frames, net))
+            imgs = up.permute(0, 3, 1, 2).float() / 255.0
+        conf, lut, gap = _gap_conf(yp, cfg, imgs, 20 * b)
+        outs = {}
+        for d in ("cpu", dev):
+            with torch.no_grad():
+                _, det, tout = pipeline_batch_step(
+                    _tree_to(yp, d), _tree_to(rp, d), _tree_to(rs, d), init_states(hp, d), up.to(d),
+                    torch.ones(b, dtype=torch.bool, device=d), torch.from_numpy(lut).to(d), ycfg=cfg, hp=hp,
+                    conf_thres=conf, frames_format=fmt, **kw)
+            outs[str(d)] = ({k: v.cpu() for k, v in det.items()}, [x.cpu() for x in tout])
+        (dc, tc), (dg, tg) = outs["cpu"], outs[str(dev)]
+        if not (torch.equal(dc["valid"], dg["valid"]) and torch.equal(dc["classes"], dg["classes"])):
+            raise AssertionError(f"{fmt}: detections differ between card and CPU")
+        if not (torch.equal(tc[3], tg[3]) and torch.equal(tc[1], tg[1])):
+            raise AssertionError(f"{fmt}: track ids/mask differ between card and CPU")
+        res[fmt] = {"detections": int(dc["valid"].sum()), "track_outputs": int(tc[3].sum()),
+                    "box_err": float((dc["boxes"] - dg["boxes"]).abs().max()), "gap": gap,
+                    "track_boxes_equal": bool(torch.equal(tc[0], tg[0]))}
+    print(f"card == CPU at f32, B={b}: {json.dumps(res)}")
+    return res
+
+
+def run_raw_rgb(dev, tmp, path, zones, conf, mapping, n_frames=N_SWITCHED):
+    """The CLI with `thin_upload: false` (full frames uploaded, letterboxed
+    on the card, crops from the raw frames through K1 on their planar copy):
+    CSV and MP4 written, K1 launched and K2 once per frame. Then the thin
+    I420 and the raw upload without the MP4 pass in turns (thin, raw, raw,
+    thin), frames/s. Returns (launches, frames/s of each)."""
+    raw = {"thin_upload": False}
+    _, launches, df = run_pipeline(dev, tmp, path, zones, conf, mapping, n_frames, "out_raw", config_over=raw)
+    if launches["crops"] <= 0 or launches["cascade"] != n_frames or launches["cascade_k3"]:
+        raise AssertionError(f"raw-RGB CLI: launches {launches}")
+    fps = {"thin": [], "raw": []}
+    for i, kind in enumerate(("thin", "raw", "raw", "thin")):
+        got, _, _ = run_pipeline(dev, tmp, path, zones, conf, mapping, n_frames, f"out_rawab{i}",
+                                 extra_args=("--no_visualize",), config_over=raw if kind == "raw" else None)
+        fps[kind].append(got)
+    print(f"raw-RGB CLI: {len(df)} CSV rows, {df.track_id.nunique() if len(df) else 0} tracks; frames/s over "
+          f"{n_frames} frames without the MP4 pass: thin I420 {[round(v, 2) for v in fps['thin']]}, raw RGB "
+          f"{[round(v, 2) for v in fps['raw']]}")
+    return launches, fps
+
+
+def check_scan(dev, fg):
+    """`class_mode="scan"` on the card over the graph phase's 256 frames
+    (the same detections and features): the scan-mode frame graph == the
+    eager scan loop on every state leaf and output, on both routes; scan
+    == batched on the track outputs; K3 launched C times per frame on the
+    K2 route and no K2, K4's fused stage C x 31 times per frame on the
+    staged route; one replay's trace shows C K3 kernels; then
+    `tracker_scan` ms/frame, batched against scan, graph on, in turns on
+    the steady batch."""
+    import torch
+
+    from vehicle_counting_tpu_torch.pipeline import step as step_mod
+    from vehicle_counting_tpu_torch.tracking import tracker
+    from vehicle_counting_tpu_torch.tracking.deepsort import init_states
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerState
+
+    batches, hp_b = fg["batches"], fg["hp"]
+    hp = hp_b._replace(class_mode="scan")
+    c = hp.num_classes
+    n_frames = sum(f.shape[0] for _, f in batches)
+    stages = min(hp.tracker.max_age, hp.tracker.capacity) + 1  # the staged route's fixed schedule
+
+    def scan(states, det, feats, h, graph, staged):
+        old = step_mod.USE_FRAME_GRAPH, tracker.FORCE_CASCADE_KERNEL
+        step_mod.USE_FRAME_GRAPH = None if graph else False
+        tracker.FORCE_CASCADE_KERNEL = False if staged else old[1]
+        try:
+            with torch.no_grad():
+                return step_mod.tracker_scan(states, det, feats, hp=h, src_hw=SRC_HW)
+        finally:
+            step_mod.USE_FRAME_GRAPH, tracker.FORCE_CASCADE_KERNEL = old
+
+    counters = kernel_counters()
+    runs, launches = {}, {}
+    for staged in (False, True):
+        for graph in (False, True):
+            zero_counts(counters)
+            states, per_batch = init_states(hp, dev), []
+            for det, feats in batches:
+                states, outs = scan(states, det, feats, hp, graph, staged)
+                per_batch.append((TrackerState(*(t.clone() for t in states)), outs))
+            torch.cuda.synchronize()
+            runs[staged, graph] = per_batch
+            launches[staged, graph] = read_counts(counters)
+        for i, ((st_e, out_e), (st_g, out_g)) in enumerate(zip(runs[staged, False], runs[staged, True])):
+            for name, e, g in zip(st_e._fields + out_e._fields, tuple(st_e) + tuple(out_e), tuple(st_g) + tuple(out_g)):
+                if not torch.equal(e, g):
+                    raise AssertionError(f"scan mode: frame graph != eager loop on the {'staged' if staged else 'K2'} "
+                                         f"route, batch {i}: {name} differs")
+        for i, ((_, out_s), (_, out_b)) in enumerate(zip(runs[staged, True], fg["runs"][staged, True])):
+            for name in out_b._fields:
+                if not torch.equal(getattr(out_s, name), getattr(out_b, name)):
+                    raise AssertionError(f"scan != batched on the {'staged' if staged else 'K2'} route, batch {i}: "
+                                         f"track {name}")
+    k2_l, st_l = launches[False, True], launches[True, True]
+    if (k2_l["cascade_k3"] != c * n_frames or k2_l["cascade"] or k2_l["match_stage"] or st_l["cascade"]
+            or st_l["cascade_k3"] or st_l["match_stage"] != c * stages * n_frames or launches[False, False] != k2_l):
+        raise AssertionError(f"scan-mode launch counts over {n_frames} frames: K2 route {k2_l}, staged {st_l}")
+    events = device_events(step_mod.frame_runner(hp, SRC_HW, dev)._step)
+    seen = sum("cascade_kernel" in name for name, _ in events)
+    if seen != c:
+        raise AssertionError(f"one scan-mode replay shows {seen} association kernels in the card's trace, want {c}")
+    n_out = sum(int(o.mask.sum()) for _, o in runs[False, True])
+    print(f"scan mode: frame graph == eager loop, bitwise, on every state leaf and output, both routes; scan == "
+          f"batched on the track outputs ({n_out} track outputs); launches over {n_frames} frames: K2 route "
+          f"{k2_l['cascade_k3']} K3 ({c} per frame), 0 K2; staged route {st_l['match_stage']} K4 match_stage "
+          f"({c} x {stages} per frame); one replay: {len(events)} device kernels, {seen} K3")
+
+    warmed = fg["runs"][False, False][0][0]
+    det, feats = batches[1]
+    b = feats.shape[0]
+
+    def scan_ms(h):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan(TrackerState(*(t.clone() for t in warmed)), det, feats, h, True, False)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / b
+
+    scan_ms(hp), scan_ms(hp_b)  # warm-up (captures)
+    t = {"batched": [], "scan": []}
+    for mode in ("batched", "scan", "scan", "batched") * 2:
+        t[mode].append(scan_ms(hp if mode == "scan" else hp_b))
+    print(f"tracker_scan ms/frame (B={b}, steady state, K2 route, frame graph on), batched/scan/scan/batched x2: "
+          f"batched {[round(v, 4) for v in t['batched']]} (min {min(t['batched']):.4f}), scan "
+          f"{[round(v, 4) for v in t['scan']]} (min {min(t['scan']):.4f})")
+    step_mod.free_frame_runners()
+    return {"ab": t, "launches_k2_route": k2_l, "launches_staged_route": st_l, "replay_device_kernels": len(events),
+            "replay_k3": seen, "frames": n_frames}
 
 
 def run_stage_bench(dev):
@@ -1512,8 +1878,12 @@ def main() -> int:
     k7 = check_k7(dev)
     phase("K1 crop gather", card)
     k1 = check_k1(dev)
+    phase("K1 at source resolution (the raw-RGB crop source)", card)
+    k1_src = check_k1_source(dev)
     phase("K2/K3 association", card)
     k2 = check_k2(dev)
+    phase("K3, the per-class entry (class_mode scan)", card)
+    k3 = check_k3(dev)
     phase("K4 batched assignment", card)
     k4 = check_k4(dev)
     phase("K5 fused ReID stage-1 block", card)
@@ -1556,10 +1926,19 @@ def main() -> int:
         launches_k6 = run_layer1_path(dev, path)
         phase("compacted stage path (K4 insert_rows, stand-alone)", card)
         launches_ins = run_compacted_stage_path(dev)
+        phase("detect-only: the CLI with --detect_only", card)
+        fps_det, launches_det, rows_det = run_detect_only(dev, tmp, path, zones, conf, mapping)
+        phase("raw-rgb: the CLI with thin_upload: false", card)
+        launches_raw, fps_raw = run_raw_rgb(dev, tmp, path_sw, zones_sw, conf, mapping)
         phase("parity", card)
         scan = check_parity(dev, path)
+        phase("parity of the detect-only and RGB fronts", card)
+        front = check_front_parity(dev, path)
         phase("frame graph: graph == eager loop on both routes, tracker A/B", card)
         fg = check_frame_graph(dev, path, conf, mapping)
+        phase("scan: class_mode scan, graph == eager, scan == batched, K3 per class", card)
+        sc = check_scan(dev, fg)
+        del fg["batches"], fg["runs"]
         phase("--profile CLI run + profile_summary", card)
         prof = run_profile(dev, tmp, path_sw, zones_sw, conf, mapping)
         phase("--weight CLI run (seeded .pt + .t7)", card)
@@ -1574,12 +1953,17 @@ def main() -> int:
     kernels = [
         dict(name="crop_gather", route="cuda", source="vehicle_counting_tpu_torch/csrc/crops.cu",
              replaces="vehicle_counting_tpu/ops/pallas/crops.py:240", launches=launches["crops"],
-             launches_bench=launches_bench["crops"], launches_stage_bench=launches_stage["crops"], **k1),
+             launches_bench=launches_bench["crops"], launches_stage_bench=launches_stage["crops"],
+             launches_raw_rgb=launches_raw["crops"], source_720p=k1_src, **k1),
         dict(name="cascade_match", route="cuda", source="vehicle_counting_tpu_torch/csrc/cascade.cu",
              replaces="vehicle_counting_tpu/ops/pallas/cascade.py:887", launches=launches["cascade"],
              launches_bench=launches_bench["cascade"], launches_stage_bench=launches_stage["cascade"],
-             launches_per_frame=launches["cascade"] / N_FRAMES, warmup_launches=warmup["cascade"],
-             replay_in_trace=fg["replay_in_trace"]["k2"], **k2),
+             launches_raw_rgb=launches_raw["cascade"], launches_per_frame=launches["cascade"] / N_FRAMES,
+             warmup_launches=warmup["cascade"], replay_in_trace=fg["replay_in_trace"]["k2"], **k2),
+        dict(name="cascade_match_batched", route="cuda", source="vehicle_counting_tpu_torch/csrc/cascade.cu",
+             replaces="vehicle_counting_tpu/ops/pallas/cascade.py:379", launches=sc["launches_k2_route"]["cascade_k3"],
+             path="class_mode scan (the graph phase's frames)", launches_per_frame=sc["launches_k2_route"]["cascade_k3"]
+             / sc["frames"], launches_default_path=launches["cascade_k3"], replay_k3=sc["replay_k3"], **k3),
         dict(name="insert_rows", route="cuda", source="vehicle_counting_tpu_torch/csrc/assignment.cu",
              replaces="vehicle_counting_tpu/ops/pallas/assignment.py:179", launches=launches_ins,
              path="compacted stage stand-alone", launches_switched=launches_sw["insert_rows"],
@@ -1607,6 +1991,10 @@ def main() -> int:
           f"{min(scan['staged']):.4f} [{card}]")
     print(f"tracker_scan ms/frame, B=128 steady state, frame graph off / on: {json.dumps(fg['ab'])} [{card}]")
     print(f"CLI frames/s, frame graph off / on: {json.dumps(cli_fps)} [{card}]")
+    print(f"detect-only CLI frames/s ({N_FRAMES} frames, cold): {fps_det:.2f}, {rows_det} rows [{card}]")
+    print(f"CLI frames/s over {N_SWITCHED} frames without the MP4 pass, thin I420 / raw RGB: {json.dumps(fps_raw)} [{card}]")
+    print(f"tracker_scan ms/frame, B=128 steady state, graph on, batched / scan: {json.dumps(sc['ab'])} [{card}]")
+    print(f"K1 on the raw 720x1280 source: {json.dumps(k1_src)} [{card}]")
     print(f"launch cost, us: {json.dumps(k7['probe'])} [{card}]")
     print(f"stage_bench ms/frame (min, median): {json.dumps(stages)} [{card}]")
     print(f"bench: {json.dumps(metric)}; streamed p50 {telemetry['p50_fps']} min {telemetry['min_fps']} best "

@@ -266,8 +266,11 @@ def test_stage_bench_tiny_cpu_prints_every_stage():
 
 
 def test_stage_bench_flags():
-    with pytest.raises(SystemExit, match="not yet ported"):
-        stage_bench.main(["--device", "cpu", "--class_mode", "scan"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        res = stage_bench.main(["--device", "cpu", "--class_mode", "scan", "--batch", "1", "--reps", "1", "--chain", "1",
+                                "--stages", "tracker_steady", "--dets", "3"], **SMALL)
+    assert list(res) == ["tracker_steady"] and 0 < res["tracker_steady"][0]
     with pytest.raises(SystemExit, match="unknown stage"):
         stage_bench.main(["--device", "cpu", "--batch", "1", "--stages", "nope"], **SMALL)
     buf = io.StringIO()

@@ -178,3 +178,107 @@ def test_visualize_merged_pixel_equal(tmp_path):
         n += 1
     assert n == N_FRAMES
     assert os.path.getsize(outs[0]) == os.path.getsize(outs[1])
+
+
+# ---- evaluation, box fusion, box converters --------------------------------
+
+def _eval_case(seed, n_img=6, nc=3):
+    """Seeded predictions and ground truth: jittered copies of the truth
+    (some with the wrong class), false positives, missed objects, score
+    ties."""
+    rng = np.random.default_rng(seed)
+    preds, gts = [], []
+    for _ in range(n_img):
+        n = int(rng.integers(0, 6))
+        xy = rng.uniform(0, 200, (n, 2))
+        gb = np.concatenate([xy, xy + rng.uniform(10, 60, (n, 2))], 1)
+        gc = rng.integers(0, nc, n)
+        keep = rng.random(n) < 0.8
+        pb = gb[keep] + rng.normal(0, 3, (int(keep.sum()), 4))
+        pc = np.where(rng.random(int(keep.sum())) < 0.85, gc[keep], rng.integers(0, nc, int(keep.sum())))
+        fxy = rng.uniform(0, 200, (2, 2))
+        pb = np.concatenate([pb, np.concatenate([fxy, fxy + 20], 1)])
+        pc = np.concatenate([pc, rng.integers(0, nc, 2)])
+        ps = np.round(rng.uniform(0.05, 1.0, len(pb)), 1)  # rounded: ties
+        preds.append({"boxes": pb, "classes": pc, "scores": ps})
+        gts.append({"boxes": gb, "classes": gc})
+    return preds, gts
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_evaluation_metrics_equal(seed):
+    import vehicle_counting_tpu.evaluation as jev
+    import vehicle_counting_tpu_torch.evaluation as pev
+
+    preds, gts = _eval_case(seed)
+    for kw in ({}, {"max_dets": 2, "conf_for_pr": 0.5}):
+        got = pev.evaluate_detections(preds, gts, num_classes=3, **kw)
+        assert got == jev.evaluate_detections(preds, gts, num_classes=3, **kw)
+    assert pev.evaluate_yolov5_v6(preds, gts) == jev.evaluate_yolov5_v6(preds, gts)
+    tp, sc = np.random.default_rng(seed).random(20) < 0.5, np.round(np.random.default_rng(seed + 9).random(20), 1)
+    assert pev.average_precision(tp, sc, 12) == jev.average_precision(tp, sc, 12)
+
+
+def test_evaluation_cli_equal(tmp_path, capsys):
+    """`python -m vehicle_counting_tpu_torch.evaluation` on a detections
+    CSV against a COCO json and a CSV ground truth, both harnesses."""
+    import vehicle_counting_tpu.evaluation as jev
+    import vehicle_counting_tpu_torch.evaluation as pev
+
+    preds, gts = _eval_case(7)
+    rows = [(i, *b, s, c) for i, p in enumerate(preds) for b, s, c in zip(p["boxes"], p["scores"], p["classes"])]
+    pred_csv = str(tmp_path / "cam_detections.csv")
+    pd.DataFrame(rows, columns=["frame_id", "x1", "y1", "x2", "y2", "score", "label"]).to_csv(pred_csv, index=False)
+    gt_rows = [(i, *b, c) for i, g in enumerate(gts) for b, c in zip(g["boxes"], g["classes"])]
+    gt_csv = str(tmp_path / "gt.csv")
+    pd.DataFrame(gt_rows, columns=["frame_id", "x1", "y1", "x2", "y2", "label"]).to_csv(gt_csv, index=False)
+    coco = {"images": [{"id": i} for i in range(len(gts))],
+            "annotations": [{"image_id": i, "bbox": [b[0], b[1], b[2] - b[0], b[3] - b[1]], "category_id": int(c)}
+                            for i, g in enumerate(gts) for b, c in zip(g["boxes"], g["classes"])]}
+    gt_json = str(tmp_path / "gt.json")
+    with open(gt_json, "w") as f:
+        json.dump(coco, f)
+    for gt in (gt_csv, gt_json):
+        for harness in ("yolov5", "coco"):
+            argv = ["--pred", pred_csv, "--gt", gt, "--harness", harness, "--num_classes", "3"]
+            got, want = pev.main(argv), jev.main(argv)
+            assert got == want and got["mAP50"] > 0
+            out = capsys.readouterr().out.splitlines()
+            assert out[0] == out[1]
+
+
+def test_weighted_boxes_fusion_equal():
+    import vehicle_counting_tpu.ops.fusion as jfu
+    import vehicle_counting_tpu_torch.ops.fusion as pfu
+
+    rng = np.random.default_rng(8)
+    base = rng.uniform(0, 100, (6, 2))
+    boxes = [np.concatenate([base, base + 30], 1) + rng.normal(0, 2, (6, 4)) for _ in range(3)]
+    scores = [rng.uniform(0, 1, 6) for _ in range(3)]
+    labels = [rng.integers(0, 2, 6) for _ in range(3)]
+    for kw in ({}, {"iou_thr": 0.7, "skip_box_thr": 0.2, "weights": [2.0, 1.0, 1.0]}):
+        for g, w in zip(pfu.weighted_boxes_fusion(boxes, scores, labels, **kw),
+                        jfu.weighted_boxes_fusion(boxes, scores, labels, **kw)):
+            np.testing.assert_array_equal(g, w)
+    empty = pfu.weighted_boxes_fusion([np.zeros((0, 4))], [np.zeros(0)], [np.zeros(0)])
+    assert all(len(a) == 0 for a in empty)
+    sizes = np.asarray([[0, 0, 1, 5], [0, 0, 5, 5], [0, 0, 5000, 5]], np.float64)
+    np.testing.assert_array_equal(pfu.filter_area(sizes), jfu.filter_area(sizes))
+
+
+@pytest.mark.parametrize("fn", ["clip_boxes", "cxcywh_to_xyxy", "xyxy_to_cxcywh", "xyah_to_tlwh"])
+def test_box_converters_equal(fn):
+    """The port's torch converters against the JAX package's, array-equal
+    on seeded f32 boxes (elementwise f32 arithmetic in the same order)."""
+    import jax.numpy as jnp
+    import torch
+
+    import vehicle_counting_tpu.ops.boxes as jb
+    import vehicle_counting_tpu_torch.ops.boxes as tb
+
+    b = np.random.default_rng(9).uniform(-50, 400, (2, 7, 4)).astype(np.float32)
+    b[..., 2:] = np.abs(b[..., 2:]) + 1
+    extra = (240, 320) if fn == "clip_boxes" else ()
+    got = getattr(tb, fn)(torch.from_numpy(b), *extra).numpy()
+    want = np.asarray(getattr(jb, fn)(jnp.asarray(b), *extra))
+    np.testing.assert_array_equal(got, want)

@@ -54,6 +54,9 @@ PORT_MODULES = [
     "vehicle_counting_tpu_torch.benchmarks.micro.noop_launch",
     "vehicle_counting_tpu_torch.bench",
     "vehicle_counting_tpu_torch.stage_bench",
+    "vehicle_counting_tpu_torch.evaluation",
+    "vehicle_counting_tpu_torch.ops.fusion",
+    "vehicle_counting_tpu_torch.tracking.graph",
 ]
 
 
@@ -107,10 +110,38 @@ def test_no_source_imports_the_jax_package():
     assert not bad, bad
 
 
+def _tiny_detect_only_run(run, tmp_path):
+    """`--detect_only` on a 3-frame 64x48 video, random-init yolov5n at
+    64x64 on the CPU: it runs and writes the detections CSV's header."""
+    import cv2
+    import numpy as np
+
+    from vehicle_counting_tpu_torch.configs import config_from_dict, default_cam_config, default_config
+
+    video = str(tmp_path / "tiny.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (64, 48))
+    for i in range(3):
+        writer.write(np.full((48, 64, 3), 40 * i, np.uint8))
+    writer.release()
+    args = run.parser.parse_args(["--input_path", video, "--output_path", str(tmp_path / "out"), "--device", "cpu",
+                                  "--detect_only"])
+    config = config_from_dict(default_config(), {"model_name": "yolov5n", "image_size": [64, 64], "detect_batch": 2,
+                                                  "compute_dtype": "float32"})
+    (res,) = run.main(args, config, default_cam_config())
+    assert res["frames"] == 3 and os.path.basename(res["csv"]) == "tiny_detections.csv"
+    with open(res["csv"]) as f:
+        assert f.readline().strip() == "frame_id,x1,y1,x2,y2,score,label"
+
+
 @pytest.mark.parametrize("flag", ["--multicam", "--frame_parallel", "--detect_only"])
 def test_cli_unported_flags_raise(flag, tmp_path):
+    """The two flags whose paths are not ported raise; --detect_only, which
+    is, runs."""
     from vehicle_counting_tpu_torch import run
 
+    if flag == "--detect_only":
+        _tiny_detect_only_run(run, tmp_path)
+        return
     args = run.parser.parse_args(["--input_path", "v.mp4", "--output_path", str(tmp_path), flag])
     with pytest.raises(SystemExit, match="not yet ported"):
         run.main(args, None, None)

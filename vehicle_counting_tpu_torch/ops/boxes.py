@@ -1,7 +1,8 @@
 """Box-order conversions and pairwise overlap matrices.
 
 Port of `vehicle_counting_tpu/ops/boxes.py`. Conventions:
-  xyxy = (x1, y1, x2, y2), tlwh = (x1, y1, w, h), xyah = (cx, cy, w/h, h).
+  xyxy = (x1, y1, x2, y2), tlwh = (x1, y1, w, h), cxcywh = (cx, cy, w, h),
+  xyah = (cx, cy, w/h, h).
 Functions take [..., 4] boxes; the matrices take one leading batch dim
 at most ([..., N, 4] x [..., M, 4] -> [..., N, M]).
 """
@@ -21,10 +22,33 @@ def tlwh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, x + w, y + h], dim=-1)
 
 
+def xyxy_to_cxcywh(b: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
+
+
+def cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = b.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+
+
 def tlwh_to_xyah(b: torch.Tensor) -> torch.Tensor:
     """tlwh -> (center-x, center-y, aspect = w/h, h)."""
     x, y, w, h = b.unbind(-1)
     return torch.stack([x + w / 2, y + h / 2, w / torch.clamp(h, min=1e-6), h], dim=-1)
+
+
+def xyah_to_tlwh(b: torch.Tensor) -> torch.Tensor:
+    cx, cy, a, h = b.unbind(-1)
+    w = a * h
+    return torch.stack([cx - w / 2, cy - h / 2, w, h], dim=-1)
+
+
+def clip_boxes(b: torch.Tensor, height, width) -> torch.Tensor:
+    """Clip xyxy boxes into [0, width] x [0, height]."""
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([torch.clamp(x1, 0, width), torch.clamp(y1, 0, height),
+                        torch.clamp(x2, 0, width), torch.clamp(y2, 0, height)], dim=-1)
 
 
 def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,11 @@
 Port of `vehicle_counting_tpu/ops/crops.py::gather_crops_batch` (the plain
 version, `gather_crops_batch_plain`) and of the TPU kernel
 `ops/pallas/crops.py::gather_crops_batch_pallas` (the CUDA kernel
-`csrc/crops.cu`, reached through `gather_crops_batch`).
+`csrc/crops.cu`, reached through `gather_crops_batch`). K1 reads planar
+[B, 3, H, W] frames; an interleaved [B, H, W, 3] source (the raw-RGB and
+letterboxed-RGB uploads, `gather_crops`'s one frame) goes through K1 on a
+planar copy (`planar_copy`: one u8 transpose per batch, as the JAX
+package transposes before its Pallas gather).
 
 Semantics (reference deep_sort.py:88-129, feature_extractor.py:26-39):
 integer crop bounds x1 = max(int(x), 0), x2 = min(int(x2), W - 1); cv2
@@ -108,6 +112,8 @@ def _check_cuda_args(frames_planar, frame_idx, boxes_xyxy, valid):
         raise ValueError(f"frames_planar must be [B, 3, H, W] uint8, got {tuple(frames_planar.shape)} {frames_planar.dtype}")
     if not frames_planar.is_contiguous():
         raise ValueError("frames_planar must be contiguous")
+    if 3 * frames_planar.shape[2] * frames_planar.shape[3] >= 2 ** 31:
+        raise ValueError(f"frames of {tuple(frames_planar.shape[2:])} exceed the kernel's 32-bit pixel offsets")
     d = frame_idx.shape[0]
     if frame_idx.dim() != 1 or boxes_xyxy.shape != (d, 4) or valid.shape != (d,):
         raise ValueError(
@@ -171,3 +177,17 @@ def gather_crops_batch(frames_planar: torch.Tensor, frame_idx: torch.Tensor,
 
 
 gather_crops_batch.launches = 0
+
+
+def planar_copy(frames: torch.Tensor) -> torch.Tensor:
+    """Interleaved [B, H, W, 3] frames -> a contiguous planar [B, 3, H, W]
+    copy, the layout K1 reads."""
+    return frames.permute(0, 3, 1, 2).contiguous()
+
+
+def gather_crops(frame: torch.Tensor, boxes_xyxy: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Normalised [D, 50, 50, 3] f32 crops of one interleaved [H, W, 3]
+    frame (the JAX package's `gather_crops`): K1 on the frame's planar copy
+    for CUDA tensors, its plain version for CPU tensors."""
+    fidx = torch.zeros(boxes_xyxy.shape[0], dtype=torch.int32, device=frame.device)
+    return gather_crops_batch(planar_copy(frame[None]), fidx, boxes_xyxy, valid)

@@ -1,15 +1,18 @@
 """End-to-end counting pipeline (reference: modules/__init__.py).
 
 Port of `vehicle_counting_tpu/pipeline/__init__.py::CountingPipeline`
-(`__init__` and `run_video`). Per video: decode frame batches on the
-host, letterbox + pack I420 and upload one batch ahead in a worker thread,
+(`__init__`, `run_video`, `run_video_detect_only`). Per video: decode frame
+batches on the host, letterbox + pack I420 (or, with `thin_upload: false`,
+nothing: the raw frames) and upload one batch ahead in a worker thread,
 run the fused detect+track step (`pipeline/step.py`) on the device, read
 back the small [B, C, K] track outputs one batch behind, then zone
 filtering, direction assignment, CSV and the annotated MP4 on the host
 (this package's `counting/` and `data/` modules).
 
 Artifacts: {output}/{cam}.csv with the reference's 10-column schema and
-{output}/{cam}.mp4; zone annotation at {zone_path}/{cam}.json.
+{output}/{cam}.mp4; zone annotation at {zone_path}/{cam}.json. The
+detect-only pass writes {output}/{cam}_detections.csv instead
+(frame_id,x1,y1,x2,y2,score,label).
 """
 
 from __future__ import annotations
@@ -195,9 +198,10 @@ class CountingPipeline:
         from vehicle_counting_tpu_torch.pipeline import step as step_mod
         from vehicle_counting_tpu_torch.tracking.deepsort import init_states
 
+        # thin upload (default): host letterbox + I420; thin_upload: false
+        # uploads the raw frames and letterboxes them on the device
         thin = self.config.thin_upload
-        if thin is not None and not thin:
-            raise NotImplementedError("thin_upload: false (raw RGB upload) is not yet ported")
+        thin = True if thin is None else bool(thin)
         cam_name = self.get_cam_name(video_path)
         reader = VideoReader(video_path, batch_size=self.batch_size)
         info = reader.video_info
@@ -215,6 +219,7 @@ class CountingPipeline:
         net_hw = self.net_hw(src_hw)
         # ship only the letterbox content rows when that is bit-exact
         content_only = content_upload_exact(src_hw, net_hw)
+        frames_format = "letterboxed_yuv420" if thin else "raw_rgb"
         it = reader.batches()
 
         def fetch():
@@ -223,10 +228,11 @@ class CountingPipeline:
 
         def prep(batch):
             frames, frame_ids, valid = batch
-            with timer.stage("letterbox"):
-                yuv = host_letterbox_yuv420(frames, net_hw, content_only=content_only)
+            if thin:
+                with timer.stage("letterbox"):
+                    frames = host_letterbox_yuv420(frames, net_hw, content_only=content_only)
             with timer.stage("upload"):
-                fdev = self._upload(yuv)
+                fdev = self._upload(frames)
                 vdev = self._upload(valid)
             return fdev, vdev, frame_ids, valid
 
@@ -262,7 +268,7 @@ class CountingPipeline:
                             ycfg=self.ycfg, hp=hp, image_size=net_hw, src_hw=src_hw,
                             conf_thres=self.conf_thres, iou_thres=self.iou_thres,
                             max_det=self.max_det, dtype=self.dtype,
-                            frames_format="letterboxed_yuv420",
+                            frames_format=frames_format,
                         )
                     if self.check_numerics:
                         check_step_finite(det, states, frame_ids[0])
@@ -303,6 +309,76 @@ class CountingPipeline:
         if self.debug:
             print(f"[debug] {cam_name} per-stage timing:\n{timer.summary()}")
         return {"csv": csv_path, "counts": counts, "fps": fps, "frames": num_frames}
+
+    def run_video_detect_only(self, video_path: str) -> Dict:
+        """The detection-only pass (BASELINE config 1): per-frame detections
+        CSV {output}/{cam}_detections.csv, columns frame_id, x1, y1, x2, y2,
+        score, label, one row per mapped detection in source pixels, frames
+        in order and each frame's detections in score order. Same overlap
+        as `run_video` (the worker letterboxes + uploads one batch ahead,
+        the readback lags one batch) on the same thin-upload I420 pixel
+        path. Returns {'csv', 'frames', 'fps'}."""
+        import pandas as pd
+
+        from vehicle_counting_tpu_torch.ops.letterbox import content_upload_exact, host_letterbox_yuv420
+        from vehicle_counting_tpu_torch.pipeline.step import detect_only_step
+
+        cam_name = self.get_cam_name(video_path)
+        reader = VideoReader(video_path, batch_size=self.batch_size)
+        info = reader.video_info
+        src_hw = (info["height"], info["width"])
+        net_hw = self.net_hw(src_hw)
+        content_only = content_upload_exact(src_hw, net_hw)
+        lut = self.class_lut.cpu().numpy()
+        cols = ("frame_id", "x1", "y1", "x2", "y2", "score", "label")
+        parts = []
+        num_frames = 0
+        self.frames_done = 0
+        t0 = time.perf_counter()
+        it = reader.batches()
+
+        def prep(batch):
+            frames, frame_ids, valid = batch
+            return self._upload(host_letterbox_yuv420(frames, net_hw, content_only=content_only)), frame_ids, valid
+
+        def drain(pending_):
+            nonlocal num_frames
+            out, frame_ids, valid = pending_
+            boxes, scores = out["boxes"].cpu().numpy(), out["scores"].cpu().numpy()
+            classes, ok = out["classes"].cpu().numpy(), out["valid"].cpu().numpy()
+            num_frames += int(valid.sum())
+            self.frames_done = num_frames
+            # row-major nonzero: frames in order, detections in slot order
+            b, i = np.nonzero(ok & np.asarray(valid, bool)[:, None])
+            cl = classes[b, i]
+            mapped = np.where(cl < len(lut), lut[np.clip(cl, 0, len(lut) - 1)], -1)
+            keep = mapped >= 0
+            b, i = b[keep], i[keep]
+            parts.append(pd.DataFrame({
+                "frame_id": np.asarray(frame_ids)[b].astype(np.int64),
+                "x1": boxes[b, i, 0].astype(np.float64), "y1": boxes[b, i, 1].astype(np.float64),
+                "x2": boxes[b, i, 2].astype(np.float64), "y2": boxes[b, i, 3].astype(np.float64),
+                "score": scores[b, i].astype(np.float64), "label": mapped[keep].astype(np.int64),
+            }, columns=cols))
+
+        pending = None
+        with torch.no_grad():
+            for ydev, frame_ids, valid in prefetch(lambda: next(it, None), prep):
+                out = detect_only_step(
+                    self.yolo_params, ydev, ycfg=self.ycfg, image_size=net_hw, src_hw=src_hw,
+                    conf_thres=self.conf_thres, iou_thres=self.iou_thres, max_det=self.max_det, dtype=self.dtype,
+                )
+                if pending is not None:
+                    drain(pending)
+                pending = (out, frame_ids, valid)
+            if pending is not None:
+                drain(pending)
+        elapsed = time.perf_counter() - t0
+        csv_path = os.path.join(self.saved_path, cam_name + "_detections.csv")
+        df = pd.concat(parts, ignore_index=True) if parts else pd.DataFrame({c: [] for c in cols})
+        df.to_csv(csv_path, index=False)
+        reader.release()
+        return {"csv": csv_path, "frames": num_frames, "fps": num_frames / elapsed if elapsed > 0 else 0.0}
 
     def run(self, visualize: bool = True) -> List[Dict]:
         results = []

@@ -1,12 +1,17 @@
-"""The per-batch device step: detect + track B frames.
+"""The per-batch device steps: detect + track B frames, or detect only.
 
-Port of `vehicle_counting_tpu/pipeline/step.py` on the thin-upload
-`letterboxed_yuv420` path with planar pixels:
+Port of `vehicle_counting_tpu/pipeline/step.py`. `pipeline_batch_step`
+takes one of three upload encodings (`frames_format`):
 
-    I420 (content rows) -> planar u8 RGB -> YOLOv5 -> decode/NMS tail ->
-    box restore -> class map -> ReID crops (kernel K1) + CNN ->
-    frame scan of the class-batched DeepSORT step (kernel K2, or K4 per
-    stage on the staged route)
+    letterboxed_yuv420  I420 (content rows or full) -> planar u8 RGB
+    letterboxed_rgb     host-letterboxed [B, dh, dw, 3] u8
+    raw_rgb             full [B, H, W, 3] u8, letterboxed on the device
+
+then YOLOv5 -> decode/NMS tail -> box restore -> class map -> ReID crops
+(kernel K1; an interleaved source on a planar copy) + CNN -> frame scan of
+the DeepSORT step (kernel K2 for all classes, K3 per class in
+`class_mode="scan"`, or K4 per stage on the staged route).
+`detect_only_step` is the I420 front alone (the detect-only pass).
 
 One upload per batch and one small readback ([B, C, K] track rows).
 The frame-independent tracker inputs are built for all B frames at once;
@@ -26,6 +31,7 @@ from vehicle_counting_tpu_torch.models.detector import fused_detect_tail
 from vehicle_counting_tpu_torch.models.yolo import YoloConfig, yolov5_forward_nchw
 from vehicle_counting_tpu_torch.ops import true_div
 from vehicle_counting_tpu_torch.ops.letterbox import (
+    letterbox,
     letterbox_params,
     restore_boxes,
     yuv420_content_to_full,
@@ -89,6 +95,43 @@ def use_frame_graph(device) -> bool:
     return USE_FRAME_GRAPH is not False and torch.device(device).type == "cuda"
 
 
+def _i420_pixels(yuv, src_hw: Tuple[int, int], image_size: Tuple[int, int]):
+    """Host-letterboxed I420 (content rows only, or the full letterbox) ->
+    planar u8 RGB [B, 3, H, W]."""
+    if yuv.shape[1] != image_size[0] * 3 // 2:
+        # content-only upload: re-insert the constant gray padding
+        yuv = yuv420_content_to_full(yuv, src_hw, image_size)
+    return yuv420_to_rgb_u8_planar(yuv)
+
+
+def _net_input(rgb_u8, dtype):
+    """u8 RGB -> the detector's input in [0, 1] (IEEE division by 255)."""
+    return true_div(rgb_u8.to(torch.float32), 255.0).to(dtype)
+
+
+def _detect(yolo_params, imgs, ycfg: YoloConfig, src_hw, image_size, conf_thres, iou_thres, max_det):
+    """YOLOv5 on NCHW images -> the fused tail -> boxes in source pixels."""
+    heads = [h.permute(0, 2, 3, 1) for h in yolov5_forward_nchw(yolo_params, imgs)]
+    det = fused_detect_tail(heads, ycfg, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det)
+    det["boxes"] = restore_boxes(det["boxes"], src_hw, image_size)
+    return det
+
+
+def detect_only_step(yolo_params, yuv, *, ycfg: YoloConfig, image_size: Tuple[int, int],
+                     src_hw: Tuple[int, int], conf_thres: float = 0.25, iou_thres: float = 0.45,
+                     max_det: int = 300, dtype=torch.bfloat16):
+    """The detect-only device step on the thin-upload I420 path:
+    `pipeline_batch_step`'s letterboxed_yuv420 pixel path and detector
+    without ReID or tracking (the reference's ImageDetect.run,
+    modules/detect.py:30-60). yuv [B, rows*3/2, W] uint8, content rows or
+    the full letterbox. Returns boxes [B, max_det, 4] xyxy in source pixels
+    (zero where invalid), scores, classes, valid."""
+    imgs = _net_input(_i420_pixels(yuv, src_hw, image_size), dtype)
+    out = _detect(yolo_params, imgs, ycfg, src_hw, image_size, conf_thres, iou_thres, max_det)
+    out["boxes"] = out["boxes"] * out["valid"][..., None]
+    return out
+
+
 def detect_embed_core(yolo_params, reid_params, reid_stats, frames, frame_valid, class_lut, *,
                       ycfg: YoloConfig, hp: DeepSortParams, image_size: Tuple[int, int],
                       src_hw: Tuple[int, int], conf_thres: float = 0.25, iou_thres: float = 0.45,
@@ -96,30 +139,37 @@ def detect_embed_core(yolo_params, reid_params, reid_stats, frames, frame_valid,
                       frames_format: str = "letterboxed_yuv420"):
     """The frame-independent front: pixels -> detections + ReID features.
 
-    frames [B, rows*3/2, W] uint8 host-letterboxed I420 (content rows only,
-    or the full letterbox); frame_valid [B] bool; class_lut [nc] int
-    detector class -> tracked class (-1 drops). Returns (det, feats
-    [B, max_det, F]) with det boxes in source pixels.
+    frames as `frames_format` says (module docstring); frame_valid [B]
+    bool; class_lut [nc] int detector class -> tracked class (-1 drops).
+    Returns (det, feats [B, max_det, F]) with det boxes in source pixels.
+    The crop source is the planar RGB of the I420 upload, or the uploaded
+    frames themselves: the letterbox (through the gain/pad transform) or
+    the raw frames at source resolution.
     """
-    if frames_format != "letterboxed_yuv420":
-        raise NotImplementedError(f"frames_format={frames_format!r} is not yet ported")
-    if frames.shape[1] != image_size[0] * 3 // 2:
-        # content-only upload: re-insert the constant gray padding
-        frames = yuv420_content_to_full(frames, src_hw, image_size)
-    crop_source = yuv420_to_rgb_u8_planar(frames)  # [B, 3, H, W] u8
-    imgs = true_div(crop_source.to(torch.float32), 255.0).to(dtype)
-    heads = [h.permute(0, 2, 3, 1) for h in yolov5_forward_nchw(yolo_params, imgs)]
-    det = fused_detect_tail(heads, ycfg, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det)
-    det["boxes"] = restore_boxes(det["boxes"], src_hw, image_size)
+    planar, crop_gain, crop_pad = True, 1.0, (0.0, 0.0)
+    if frames_format == "raw_rgb":
+        imgs = letterbox(frames, image_size).to(dtype).permute(0, 3, 1, 2).contiguous()
+        crop_source, planar = frames, False
+    else:
+        if frames_format == "letterboxed_yuv420":
+            crop_source = _i420_pixels(frames, src_hw, image_size)  # [B, 3, H, W] u8
+            imgs = _net_input(crop_source, dtype)
+        elif frames_format == "letterboxed_rgb":
+            crop_source, planar = frames, False
+            imgs = _net_input(frames, dtype).permute(0, 3, 1, 2).contiguous()
+        else:
+            raise ValueError(f"unknown frames_format: {frames_format!r}")
+        gain, pad_x, pad_y, _, _ = letterbox_params(src_hw, image_size)
+        crop_gain, crop_pad = float(gain), (float(pad_x), float(pad_y))
+    det = _detect(yolo_params, imgs, ycfg, src_hw, image_size, conf_thres, iou_thres, max_det)
 
     mapped = class_lut[torch.clamp(det["classes"], 0, class_lut.shape[0] - 1).long()]
     det_valid = det["valid"] & (mapped >= 0) & frame_valid[:, None]
     mapped = torch.where(det_valid, mapped, -1).to(torch.int32)
 
-    gain, pad_x, pad_y, _, _ = letterbox_params(src_hw, image_size)
     feats = embed_detections_batch(
         crop_source, det["boxes"], det_valid, reid_params, reid_stats, hp,
-        crop_gain=float(gain), crop_pad=(float(pad_x), float(pad_y)), dtype=dtype,
+        crop_gain=crop_gain, crop_pad=crop_pad, dtype=dtype, planar=planar,
     )
     det["classes"] = mapped
     det["valid"] = det_valid

@@ -1,13 +1,16 @@
 """Vehicle counting CLI on PyTorch + CUDA, with the reference run.py's flags.
 
     python -m vehicle_counting_tpu_torch.run --input_path <video-or-dir> \
-        --output_path <dir> [--mapping coco|'{"2": 1, ...}'] [--debug] [--no_visualize]
+        --output_path <dir> [--mapping coco|'{"2": 1, ...}'] [--debug] [--no_visualize] \
+        [--detect_only] [--device cuda|cpu] [--profile [DIR]] [--check_numerics]
 
---weight takes an ultralytics yolov5 v6.0 `.pt` (or an `.npz` state dict);
-the ReID checkpoint is `checkpoint:` in cam_configs.yaml. Without them the
-detector and ReID weights are random-init from fixed seeds: nothing is
-downloaded. Flags of paths the port does not have yet raise instead of
-being ignored.
+--detect_only writes {cam}_detections.csv per video (no tracking; score it
+with `python -m vehicle_counting_tpu_torch.evaluation`). --weight takes an
+ultralytics yolov5 v6.0 `.pt` (or an `.npz` state dict); the ReID
+checkpoint is `checkpoint:` in cam_configs.yaml. Without them the detector
+and ReID weights are random-init from fixed seeds: nothing is downloaded.
+--multicam and --frame_parallel, whose paths the port does not have yet,
+raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -35,12 +38,13 @@ parser.add_argument("--profile", nargs="?", const="vct_trace", default=None, met
                          "python -m vehicle_counting_tpu_torch.tools.profile_summary DIR")
 parser.add_argument("--check_numerics", action="store_true",
                     help="raise at the first non-finite detection or tracker state (one extra sync per batch)")
+parser.add_argument("--detect_only", action="store_true",
+                    help="detection-only pass: per-frame detections CSV, no tracking")
 # paths of the reference package that are not ported yet: they raise
-parser.add_argument("--detect_only", action="store_true", help="not yet ported")
 parser.add_argument("--multicam", action="store_true", help="not yet ported")
 parser.add_argument("--frame_parallel", action="store_true", help="not yet ported")
 
-_NOT_PORTED = ("detect_only", "multicam", "frame_parallel")
+_NOT_PORTED = ("multicam", "frame_parallel")
 
 
 def _mapping_dict(mapping):
@@ -56,12 +60,23 @@ def _mapping_dict(mapping):
 def main(args, config, cam_config):
     from vehicle_counting_tpu_torch.pipeline import CountingPipeline
 
+    if getattr(args, "multicam", False) and args.detect_only:
+        raise SystemExit(
+            "--multicam is incompatible with --detect_only (camera sharding "
+            "drives the full detect+track step). For multi-device detection "
+            "use --frame_parallel instead."
+        )
     for flag in _NOT_PORTED:
         if getattr(args, flag, None):
             raise SystemExit(f"--{flag} is not yet ported to vehicle_counting_tpu_torch")
     args.mapping_dict = _mapping_dict(args.mapping)
     print(config)
     pipeline = CountingPipeline(args, config, cam_config)
+    if args.detect_only:
+        results = [pipeline.run_video_detect_only(p) for p in pipeline.all_video_paths]
+        for r in results:
+            print(f"{r['csv']}: {r['frames']} frames @ {r['fps']:.1f} fps")
+        return results
     results = pipeline.run(visualize=not args.no_visualize)
     for r in results:
         if r.get("csv"):

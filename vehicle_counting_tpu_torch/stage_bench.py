@@ -88,7 +88,8 @@ def main(argv=None, *, src_hw=(720, 1280), size=640, variant="yolov5s"):
                     help="capture a torch.profiler trace of each measured stage into DIR")
     ap.add_argument("--reid_dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--max_embed", type=int, default=64, help="ReID crops per CNN forward")
-    ap.add_argument("--class_mode", default="batched", choices=["scan", "batched"])
+    ap.add_argument("--class_mode", default="batched", choices=["scan", "batched"],
+                    help="the tracker's association for all classes at once, or class by class")
     ap.add_argument("--num_classes", type=int, default=4)
     ap.add_argument(
         "--dominant_frac", type=float, default=0.0,
@@ -97,8 +98,6 @@ def main(argv=None, *, src_hw=(720, 1280), size=640, variant="yolov5s"):
     )
     ap.add_argument("--device", default="cuda", help="torch device; 'cpu' for a functional check")
     args = ap.parse_args(argv)
-    if args.class_mode != "batched":
-        raise SystemExit(f"--class_mode {args.class_mode} is not yet ported to vehicle_counting_tpu_torch")
 
     import torch
 

@@ -1,15 +1,23 @@
 """Multi-class DeepSORT: detections + frames -> per-class track updates.
 
-Port of `vehicle_counting_tpu/tracking/deepsort.py` (class_mode
-"batched" only): one tracker state per class (reference
-modules/track.py:16), each fed only its class's detections, slotted into
-fixed [C, K] arrays in detection order; the confidence filter and SORT's
-greedy NMS run vectorised; ReID crops of ALL frames' valid detections are
-gathered (kernel K1) and embedded in shared chunks.
+Port of `vehicle_counting_tpu/tracking/deepsort.py`: one tracker state per
+class (reference modules/track.py:16), each fed only its class's
+detections, slotted into fixed [C, K] arrays in detection order; the
+confidence filter and SORT's greedy NMS run vectorised; ReID crops of ALL
+frames' valid detections are gathered (kernel K1) and embedded in shared
+chunks.
 
 The per-frame work splits into `frame_inputs` (frame-independent, batched
 over any leading frame axis) and `frame_update` (the recurrent tracker
-step); `deepsort_frame_core` is the two for one frame.
+step); `deepsort_frame_core` is the two for one frame, `deepsort_frame`
+the same with the crop + embed of one frame (`embed_detections`).
+
+Two class modes, with equal results: "batched" runs the association and
+lifecycle once for all classes (one K2 launch per frame); "scan" runs them
+class by class on [1, ...] slices (one K3 launch per class per frame on
+the K2 route), as the JAX package's scan over classes does. Both keep the
+Kalman predict, the appearance cost and the gallery commit batched over
+the classes.
 """
 
 from __future__ import annotations
@@ -20,9 +28,10 @@ import torch
 
 from vehicle_counting_tpu_torch.models.reid import EMBED_DIM, reid_forward
 from vehicle_counting_tpu_torch.ops.boxes import xyxy_to_tlwh
-from vehicle_counting_tpu_torch.ops.crops import gather_crops_batch
+from vehicle_counting_tpu_torch.ops.crops import gather_crops_batch, planar_copy
 from vehicle_counting_tpu_torch.ops.nms import sort_nms_mask
 from vehicle_counting_tpu_torch.tracking.tracker import (
+    SMALL_FIELDS,
     TrackerOutputs,
     TrackerParams,
     TrackerState,
@@ -41,14 +50,21 @@ class DeepSortParams(NamedTuple):
     num_classes: int
     min_confidence: float = 0.25  # MIN_CONFIDENCE
     nms_max_overlap: float = 0.5  # NMS_MAX_OVERLAP
-    class_mode: str = "batched"   # only "batched" is ported
+    class_mode: str = "batched"   # "batched": all classes in one step; "scan": class by class
     max_embed: int = 128          # ReID crops per CNN forward
 
 
+CLASS_MODES = ("batched", "scan")
+
+
+def _check_class_mode(hp: DeepSortParams) -> None:
+    if hp.class_mode not in CLASS_MODES:
+        raise ValueError(f"class_mode must be one of {CLASS_MODES}, got {hp.class_mode!r}")
+
+
 def init_states(hp: DeepSortParams, device=None) -> TrackerState:
-    """Per-class tracker states with a leading [C] axis."""
-    if hp.class_mode != "batched":
-        raise NotImplementedError(f"class_mode={hp.class_mode!r} is not yet ported (only 'batched')")
+    """Per-class tracker states with a leading [C] axis (both class modes)."""
+    _check_class_mode(hp)
     return init_state(hp.tracker, hp.num_classes, device)
 
 
@@ -107,15 +123,18 @@ def _embed_compacted_chunks(gather_chunk, embed_chunk, valid_flat, chunk: int):
     return feats
 
 
-def embed_detections_batch(frames_planar, boxes, valid, reid_params, reid_stats, hp: DeepSortParams,
+def embed_detections_batch(frames, boxes, valid, reid_params, reid_stats, hp: DeepSortParams,
                            crop_gain: float = 1.0, crop_pad: Tuple[float, float] = (0.0, 0.0),
-                           dtype=torch.float32):
+                           dtype=torch.float32, planar: bool = True):
     """Batch-global chunked ReID embed: [B, N, F], every valid det embedded.
 
-    frames_planar [B, 3, H, W] uint8 crop source; boxes [B, N, 4] xyxy
-    source pixels (mapped into the crop frame by crop_gain/crop_pad);
-    valid [B, N]. Crops go through kernel K1 (`gather_crops_batch`).
+    frames: the uint8 crop source, planar [B, 3, H, W] or, with `planar`
+    False, interleaved [B, H, W, 3]; boxes [B, N, 4] xyxy source pixels
+    (mapped into the crop frame by crop_gain/crop_pad); valid [B, N].
+    Crops go through kernel K1 (`gather_crops_batch`), an interleaved
+    source on one planar copy.
     """
+    frames_planar = frames if planar else planar_copy(frames)
     b, n = valid.shape
     dev = valid.device
     fb = _crop_transform(boxes.reshape(b * n, 4).float(), crop_gain, crop_pad)
@@ -129,6 +148,15 @@ def embed_detections_batch(frames_planar, boxes, valid, reid_params, reid_stats,
 
     feats = _embed_compacted_chunks(gather_chunk, embed_chunk, valid.reshape(b * n), hp.max_embed)
     return feats.reshape(b, n, -1)
+
+
+def embed_detections(frame, boxes, valid, reid_params, reid_stats, hp: DeepSortParams,
+                     crop_gain: float = 1.0, crop_pad: Tuple[float, float] = (0.0, 0.0),
+                     dtype=torch.float32):
+    """Crop + ReID embed of ALL of one frame's valid detections: [N, F].
+    frame [H, W, 3] uint8 RGB; boxes [N, 4] xyxy source pixels; valid [N]."""
+    return embed_detections_batch(frame[None], boxes[None], valid[None], reid_params, reid_stats, hp,
+                                  crop_gain=crop_gain, crop_pad=crop_pad, dtype=dtype, planar=False)[0]
 
 
 class FrameInputs(NamedTuple):
@@ -167,14 +195,36 @@ def frame_inputs(feats, boxes, scores, classes, valid, hp: DeepSortParams) -> Fr
     return FrameInputs(ct, cs, cv, cf, present, order)
 
 
+def _step_by_class(states: TrackerState, pre, inp: FrameInputs, hp: DeepSortParams, width: int, height: int):
+    """`tracker_step_core` class by class on [1, ...] slices (class_mode
+    "scan"), the results stacked back to [C]; the gallery leaves pass
+    through for `tracker_feature_post`."""
+    parts = []
+    for c in range(hp.num_classes):
+        one = slice(c, c + 1)
+        parts.append(tracker_step_core(
+            TrackerState(*(x[one] for x in states)), tuple(p[one] for p in pre), inp.tlwh[one], inp.scores[one],
+            inp.valid[one], hp.tracker, width, height, inp.present[one], inp.order[one],
+        ))
+    news, outs, flags = zip(*parts)
+    new_st = states._replace(**{f: torch.cat([getattr(n, f) for n in news]) for f in SMALL_FIELDS})
+    return (new_st, type(outs[0])(*(torch.cat(leaf) for leaf in zip(*outs))),
+            type(flags[0])(*(torch.cat(leaf) for leaf in zip(*flags))))
+
+
 def frame_update(states: TrackerState, inp: FrameInputs, hp: DeepSortParams,
                  out_hw: Tuple[int, int]) -> Tuple[TrackerState, TrackerOutputs]:
-    """The recurrent part: one frame of every class's tracker."""
+    """The recurrent part: one frame of every class's tracker. The
+    association and lifecycle run for all classes at once, or class by
+    class in class_mode "scan"."""
     h, w = out_hw
     pre = tracker_precompute(states, inp.tlwh, inp.feats, inp.valid, hp.tracker)
-    new_st, outputs, flags = tracker_step_core(
-        states, pre, inp.tlwh, inp.scores, inp.valid, hp.tracker, w, h, inp.present, inp.order,
-    )
+    if hp.class_mode == "scan":
+        new_st, outputs, flags = _step_by_class(states, pre, inp, hp, w, h)
+    else:
+        new_st, outputs, flags = tracker_step_core(
+            states, pre, inp.tlwh, inp.scores, inp.valid, hp.tracker, w, h, inp.present, inp.order,
+        )
     gallery, gallery_count, pending_count = tracker_feature_post(
         states.gallery, states.gallery_count, states.pending_count, flags,
         l2_normalize(inp.feats), hp.tracker,
@@ -188,6 +238,23 @@ def deepsort_frame_core(states: TrackerState, feats, boxes, scores, classes, val
     """Association + lifecycle for one frame, features precomputed:
     feats [N, F], boxes [N, 4] xyxy source pixels, scores [N], classes [N],
     valid [N]. The gallery is updated in place."""
-    if hp.class_mode != "batched":
-        raise NotImplementedError(f"class_mode={hp.class_mode!r} is not yet ported (only 'batched')")
+    _check_class_mode(hp)
     return frame_update(states, frame_inputs(feats, boxes, scores, classes, valid, hp), hp, out_hw)
+
+
+def deepsort_frame(states: TrackerState, frame, boxes, scores, classes, valid, reid_params, reid_stats,
+                   hp: DeepSortParams, crop_gain: float = 1.0, crop_pad: Tuple[float, float] = (0.0, 0.0),
+                   out_hw: Tuple[int, int] = None, dtype=torch.float32):
+    """One frame through all per-class trackers, crop + embed included.
+
+    frame [H, W, 3] uint8 RGB, the crop source; boxes [N, 4] xyxy source
+    pixels (the tracker state is in source pixels too); when the frame is
+    a letterboxed copy, crop_gain/crop_pad map the boxes into it and
+    `out_hw` gives the source (height, width) that clamps output boxes
+    (default: the frame's). Batch callers embed many frames at once
+    (`embed_detections_batch`) and call `deepsort_frame_core`."""
+    if out_hw is None:
+        out_hw = (frame.shape[0], frame.shape[1])
+    feats = embed_detections(frame, boxes, valid, reid_params, reid_stats, hp,
+                             crop_gain=crop_gain, crop_pad=crop_pad, dtype=dtype)
+    return deepsort_frame_core(states, feats, boxes, scores, classes, valid, hp, out_hw)

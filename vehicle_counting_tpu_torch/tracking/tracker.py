@@ -18,6 +18,10 @@ linear_assignment.py, iou_matching.py):
     range or slot count for the fused kernel, or where the switch says so;
   * a class with no raw detection this frame does not advance.
 
+`tracker_step` is the single-class step on an unbatched [K] state (the
+JAX package's `tracker_step`); it runs the [C]-batched core with C = 1,
+so its association takes the per-class entry of K2's kernel (K3).
+
 On the card the per-frame step is sync-free on both routes:
 data-dependent choices are masked selects and scatters, never host
 branches, and the staged route runs a fixed schedule of stages. That is
@@ -76,6 +80,11 @@ class TrackerState(NamedTuple):
     overflow: torch.Tensor       # [C] i32 count of dropped initiations
 
 
+# the leaves `_tracker_core` moves on; the gallery and its two counts are
+# `tracker_feature_post`'s
+SMALL_FIELDS = ("mean", "cov", "track_id", "state", "hits", "age", "tsu", "last_conf", "next_id", "overflow")
+
+
 class TrackerOutputs(NamedTuple):
     boxes: torch.Tensor   # [C, K, 4] i32 xyxy
     ids: torch.Tensor     # [C, K] i32
@@ -96,26 +105,28 @@ class TrackerFlags(NamedTuple):
 _FEAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def init_state(hp: TrackerParams, num_classes: int, device=None) -> TrackerState:
-    """Empty tracker state for `num_classes` classes."""
-    c, k, b, f = num_classes, hp.capacity, hp.budget, hp.feat_dim
+def init_state(hp: TrackerParams, num_classes=None, device=None) -> TrackerState:
+    """Empty tracker state for `num_classes` classes (leaves [C, ...]), or
+    with None one class's state without the class axis (`tracker_step`'s)."""
+    lead = () if num_classes is None else (num_classes,)
+    k, b, f = hp.capacity, hp.budget, hp.feat_dim
     i32 = dict(dtype=torch.int32, device=device)
-    mean = torch.zeros((c, k, 8), device=device)
+    mean = torch.zeros(lead + (k, 8), device=device)
     mean[..., 3] = 1.0  # h = 1 keeps the Cholesky finite on empty slots
     return TrackerState(
         mean=mean,
-        cov=torch.eye(8, device=device).expand(c, k, 8, 8).clone(),
-        track_id=torch.zeros((c, k), **i32),
-        state=torch.zeros((c, k), **i32),
-        hits=torch.zeros((c, k), **i32),
-        age=torch.zeros((c, k), **i32),
-        tsu=torch.zeros((c, k), **i32),
-        gallery=torch.zeros((c, k, b, f), dtype=_FEAT_DTYPES[hp.feat_dtype], device=device),
-        gallery_count=torch.zeros((c, k), **i32),
-        pending_count=torch.zeros((c, k), **i32),
-        last_conf=torch.zeros((c, k), device=device),
-        next_id=torch.ones((c,), **i32),
-        overflow=torch.zeros((c,), **i32),
+        cov=torch.eye(8, device=device).expand(lead + (k, 8, 8)).clone(),
+        track_id=torch.zeros(lead + (k,), **i32),
+        state=torch.zeros(lead + (k,), **i32),
+        hits=torch.zeros(lead + (k,), **i32),
+        age=torch.zeros(lead + (k,), **i32),
+        tsu=torch.zeros(lead + (k,), **i32),
+        gallery=torch.zeros(lead + (k, b, f), dtype=_FEAT_DTYPES[hp.feat_dtype], device=device),
+        gallery_count=torch.zeros(lead + (k,), **i32),
+        pending_count=torch.zeros(lead + (k,), **i32),
+        last_conf=torch.zeros(lead + (k,), device=device),
+        next_id=torch.ones(lead, **i32),
+        overflow=torch.zeros(lead, **i32),
     )
 
 
@@ -400,8 +411,7 @@ def tracker_step_core(st: TrackerState, pre, tlwh, conf, det_valid, hp: TrackerP
         p = present.reshape(present.shape + (1,) * (new.dim() - 1))
         return torch.where(p, new, old)
 
-    small = ("mean", "cov", "track_id", "state", "hits", "age", "tsu", "last_conf", "next_id", "overflow")
-    new_st = new_st._replace(**{f: keep(getattr(new_st, f), getattr(st, f)) for f in small})
+    new_st = new_st._replace(**{f: keep(getattr(new_st, f), getattr(st, f)) for f in SMALL_FIELDS})
     outputs = TrackerOutputs(*(keep(o, torch.zeros_like(o)) for o in outputs))
     flags = TrackerFlags(
         matched=flags.matched & present[:, None],
@@ -411,3 +421,46 @@ def tracker_step_core(st: TrackerState, pre, tlwh, conf, det_valid, hp: TrackerP
         conf_after=flags.conf_after & present[:, None],
     )
     return new_st, outputs, flags
+
+
+def _tracker_step_impl(st: TrackerState, tlwh, conf, feat, det_valid, hp: TrackerParams, width: int, height: int,
+                       det_order, pre=None, present=None):
+    """Self-contained single-class step on an unbatched [K] state:
+    precompute + core + feature post, through the [C]-batched functions
+    with C = 1. `present` (a bool tensor, default True) gates the step as
+    `tracker_step_core` does. The gallery is updated in place."""
+    one = TrackerState(*(x[None] for x in st))
+    if pre is None:
+        pre = tracker_precompute(one, tlwh[None], feat[None], det_valid[None], hp)
+    else:
+        pre = tuple(p[None] for p in pre)
+    present = torch.as_tensor(True if present is None else present, dtype=torch.bool, device=det_valid.device)
+    new_st, outputs, flags = tracker_step_core(
+        one, pre, tlwh[None], conf[None], det_valid[None], hp, width, height, present.reshape(1), det_order[None],
+    )
+    gallery, gallery_count, pending_count = tracker_feature_post(
+        one.gallery, one.gallery_count, one.pending_count, flags, l2_normalize(feat)[None], hp,
+    )
+    new_st = new_st._replace(gallery=gallery, gallery_count=gallery_count, pending_count=pending_count)
+    return TrackerState(*(x[0] for x in new_st)), TrackerOutputs(*(o[0] for o in outputs))
+
+
+def tracker_step(st: TrackerState, tlwh, conf, feat, det_valid, hp: TrackerParams, width: int, height: int,
+                 present=None, det_order=None, pre=None):
+    """One frame for one class (JAX `tracker.py::tracker_step`): state
+    leaves without the class axis ([K, ...]), detections tlwh [K, 4], conf
+    [K], feat [K, F], det_valid [K] (after the confidence filter and NMS).
+
+    `present`: whether the class had ANY raw detection this frame, before
+    the confidence filter (modules/track.py:55-59); default any(det_valid).
+    A class not present keeps its state and outputs nothing (a select, not
+    a host branch). `det_order` [K] i32: each detection's rank in the
+    reference's detection list (default: slot order). `pre`: an unbatched
+    `tracker_precompute` result, computed here when absent.
+    Returns (new state, TrackerOutputs [K, ...]); the gallery is updated in
+    place."""
+    if present is None:
+        present = det_valid.any()
+    if det_order is None:
+        det_order = torch.arange(hp.capacity, dtype=torch.int32, device=det_valid.device)
+    return _tracker_step_impl(st, tlwh, conf, feat, det_valid, hp, width, height, det_order, pre, present)
