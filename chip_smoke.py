@@ -81,6 +81,16 @@ Phases, each fatal on failure:
             both routes; scan == batched on the track outputs; K3 launched
             C times per frame (C K3 kernels in one replay's trace), no K2;
             batched against scan ms/frame;
+  multicam  (a) K2 at C = 4 classes x 8 cameras, bitwise on random, tie,
+            empty and steady problems, eager and graph-node ms; (d) the
+            tracker's frame step at N_cam x C = 4, 16, 32 classes (B=128,
+            steady, graph on), ms/frame and one replay's device kernels;
+            (b) one f32 multi-camera step of 4 cameras x B=8 on the card ==
+            the card's serial steps per camera == the CPU; (c) the CLI with
+            --multicam over 4 videos (128, 128, 128, 96 frames): CSVs and
+            MP4s, K1 launched, K2 once per frame-round for all cameras, no
+            K3; each camera's CSV against the serial CLI's; camera-frames/s
+            of both in turns;
   stage     stage_bench at B=128 (reid bf16, chunks of 128), every stage;
   bench     bench with a short budget; its metric line is parsed;
   profile   the CLI with --profile on 128 frames, then profile_summary on
@@ -112,6 +122,8 @@ N_FRAMES = 256
 N_SWITCHED = 128
 VARIANT = "yolov5s"
 KERNELS = ("crops", "cascade", "assignment", "reid_block", "conv_s2", "noop")
+MC_FRAMES = (128, 128, 128, 96)  # the multi-camera CLI's videos
+MC_K2_CAMS = 8  # cameras of K2's camera-axis check: C = 4 x 8 blocks
 
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -777,13 +789,13 @@ def check_k7(dev):
             "library_ms": min(t_plain, t_plain2), "launches": launches, "probe": probe}
 
 
-def write_video(tmp, n_frames=N_FRAMES, name="cam_smoke"):
+def write_video(tmp, n_frames=N_FRAMES, name="cam_smoke", seed=SEED + 3):
     """n_frames of 1280x720: a fixed textured background with coloured
-    boxes driving across (the same frames for every n_frames), and the
-    zone file the CLI needs."""
+    boxes driving across (the same frames for every n_frames of one seed),
+    and the zone file the CLI needs."""
     import cv2
 
-    rng = np.random.default_rng(SEED + 3)
+    rng = np.random.default_rng(seed)
     h, w = SRC_HW
     bg = cv2.resize(rng.integers(0, 256, (h // 8, w // 8, 3), dtype=np.uint8), (w, h))
     cars = [(rng.integers(0, h - 120), rng.uniform(-9, 9), rng.integers(40, 160), rng.integers(30, 120),
@@ -1633,6 +1645,295 @@ def check_scan(dev, fg):
             "replay_k3": seen, "frames": n_frames}
 
 
+def check_k2_cameras(dev):
+    """K2 with the camera axis (the multi-camera step launches it once per
+    frame with N_cam x C blocks): at C = 4 classes x MC_K2_CAMS cameras,
+    bitwise against the plain version on all four outputs (random, ties,
+    empty, steady problems); ms per launch eager and as a graph node on a
+    steady frame's and a random problem, beside the one-camera C = 4
+    steady problem in the same call."""
+    import torch
+
+    from vehicle_counting_tpu_torch.ops import cascade
+    from vehicle_counting_tpu_torch.testing import association_problem
+
+    names = ["gated", "iou", "lvl_of", "tentative", "track_id", "iou_order", "det_valid", "det_order"]
+    c = 4 * MC_K2_CAMS
+    rng = np.random.default_rng(SEED + 60)
+    n_cases, t_plain = 0, []
+    for kind in ("random", "ties", "empty", "steady"):
+        for _ in range(4):
+            pr = association_problem(rng, c, 64, 30, kind)
+            cpu = [torch.from_numpy(pr[n]) for n in names]
+            got = cascade.cascade_match_classparallel(*(x.to(dev) for x in cpu), 0.2, 0.6, max_age=30)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = cascade.cascade_match_classparallel(*cpu, 0.2, 0.6, max_age=30)
+            t_plain.append((time.perf_counter() - t0) * 1e3)
+            for field, w in zip(want._fields, want):
+                g = getattr(got, field)
+                if g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+                    raise AssertionError(f"K2 at C = {c} ({kind} problem): {field} differs from the plain version")
+            n_cases += 1
+
+    def problem(cc, kind, seed):
+        pr = association_problem(np.random.default_rng(seed), cc, 64, 30, kind)
+        return [torch.from_numpy(pr[n]).to(dev) for n in names]
+
+    times = {}
+    for label, cc, kind, seed in (("c4_steady", 4, "steady", SEED + 20), (f"c{c}_steady", c, "steady", SEED + 61),
+                                  (f"c{c}_random", c, "random", SEED + 62)):
+        gpu = problem(cc, kind, seed)
+
+        def launch(g=gpu):
+            return cascade.cascade_match_classparallel(*g, 0.2, 0.6, max_age=30)
+
+        times[label] = {"eager_ms": min(cuda_ms(launch, 50), cuda_ms(launch, 50)), "graph_node_ms": graph_node_ms(launch)}
+    outs = launch()
+    bd = bound(nbytes(*gpu, *outs), 2 * int(gpu[6].sum()) * 64 * 64, F32_FLOPS)
+    print(f"K2 with the camera axis, C = 4 x {MC_K2_CAMS} = {c} blocks: bitwise-equal to the plain version on "
+          f"{n_cases} problems (det_free, det_key, out_row, track_col); per launch {json.dumps(times)}; plain (host "
+          f"CPU) median {np.median(t_plain):.2f} ms; bound of the random problem {bd['bound_ms']:.6f} ms "
+          f"({bd['bound_by']})")
+    return {"c": c, "cases": n_cases, "max_abs_err": 0.0, "ms": times[f"c{c}_random"]["eager_ms"],
+            "graph_node_ms": times[f"c{c}_steady"]["graph_node_ms"], "plain_ms": float(np.median(t_plain)),
+            "times": times, **bd}
+
+
+def check_multicam_parity(dev, paths):
+    """f32: one `multicam_batch_step` of the cameras at B = 8 (the first
+    frames of each multi-camera video) on the card equals the card's
+    `pipeline_batch_step` camera by camera (track ids, mask, boxes and
+    every integer state leaf; the float leaves' largest difference is
+    printed) and the same multi-camera step on the CPU (track ids, mask
+    and every integer state leaf). The threshold sits in a gap of the
+    CPU's scores."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.reid import init_reid
+    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, init_yolov5
+    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, host_letterbox_yuv420, yuv420_content_to_full, yuv420_to_rgb_u8_planar
+    from vehicle_counting_tpu_torch.parallel.cameras import camera_params, multicam_batch_step, regroup_states
+    from vehicle_counting_tpu_torch.pipeline import step as step_mod
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams, TrackerState
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, n = 8, len(paths)
+    net = autoshape_hw(SRC_HW, 640)
+    cfg = YoloConfig(VARIANT, 80)
+    yp = init_yolov5(torch.Generator().manual_seed(0), cfg)
+    rp, rs = init_reid(torch.Generator().manual_seed(1))
+    yuv = torch.from_numpy(np.stack([host_letterbox_yuv420(first_batch(p, b), net, content_only=True) for p in paths]))
+    rgb = yuv420_to_rgb_u8_planar(yuv420_content_to_full(yuv.reshape((n * b,) + yuv.shape[2:]), SRC_HW, net))
+    conf, lut, gap = _gap_conf(yp, cfg, rgb.float() / 255.0, 20 * n * b)
+    hp = DeepSortParams(tracker=TrackerParams(), num_classes=4)
+    kw = dict(ycfg=cfg, hp=hp, image_size=net, src_hw=SRC_HW, conf_thres=conf, iou_thres=0.45, max_det=300,
+              dtype=torch.float32, frames_format="letterboxed_yuv420")
+    valid = torch.ones((n, b), dtype=torch.bool)
+    to = _tree_to
+
+    def multicam(d):
+        states = regroup_states(init_states(camera_params(hp, n), d), (n, hp.num_classes))
+        with torch.no_grad():
+            st, out = multicam_batch_step(to(yp, d), to(rp, d), to(rs, d), states, yuv.to(d), valid.to(d),
+                                          torch.from_numpy(lut).to(d), **kw)
+        return TrackerState(*(x.cpu() for x in st)), [x.cpu() for x in out]
+
+    (card_st, card_out), (cpu_st, cpu_out) = multicam(dev), multicam("cpu")
+    ints = [f for f, x in zip(TrackerState._fields, card_st) if not x.is_floating_point()]
+    floats = [f for f in TrackerState._fields if f not in ints]
+    float_err, boxes_cpu = {f: 0.0 for f in floats}, True
+    for i in range(n):
+        with torch.no_grad():
+            st, _, out = step_mod.pipeline_batch_step(
+                to(yp, dev), to(rp, dev), to(rs, dev), init_states(hp, dev), yuv[i].to(dev), valid[i].to(dev),
+                torch.from_numpy(lut).to(dev), **kw)
+        st, out = TrackerState(*(x.cpu() for x in st)), [x.cpu() for x in out]
+        for name, j in (("boxes", 0), ("ids", 1), ("mask", 3)):
+            if not torch.equal(card_out[j][i], out[j]):
+                raise AssertionError(f"multi-camera parity: camera {i} track {name} differ from its serial step on the card")
+        for f in ints:
+            if not torch.equal(getattr(card_st, f)[i], getattr(st, f)):
+                raise AssertionError(f"multi-camera parity: camera {i} state {f} differs from its serial step on the card")
+        for f in floats:
+            float_err[f] = max(float_err[f], float((getattr(card_st, f)[i].float() - getattr(st, f).float()).abs().max()))
+    for name, j in (("ids", 1), ("mask", 3)):
+        if not torch.equal(card_out[j], cpu_out[j]):
+            raise AssertionError(f"multi-camera parity: track {name} differ between card and CPU")
+    for f in ints:
+        if not torch.equal(getattr(card_st, f), getattr(cpu_st, f)):
+            raise AssertionError(f"multi-camera parity: state {f} differs between card and CPU")
+    boxes_cpu = bool(torch.equal(card_out[0], cpu_out[0]))
+    step_mod.free_frame_runners()
+    res = {"cameras": n, "b": b, "track_outputs": int(card_out[3].sum()), "gap": gap,
+           "float_leaf_max_diff_vs_serial": float_err, "track_boxes_equal_cpu": boxes_cpu}
+    print(f"multi-camera step, f32, {n} cameras x B={b}: card == card's serial step per camera (track ids, mask, "
+          f"boxes, {len(ints)} integer state leaves) == CPU (ids, mask, integer leaves): {json.dumps(res)}")
+    return res
+
+
+def write_multicam_videos(tmp):
+    """The multi-camera CLI's input: one directory of MC_FRAMES 1280x720
+    videos, each from its own seed, with their zone files."""
+    vids = os.path.join(tmp, "multicam")
+    os.makedirs(vids)
+    paths = [write_video(vids, n, f"cam_mc{i}", seed=SEED + 70 + i)[0] for i, n in enumerate(MC_FRAMES)]
+    return vids, os.path.join(vids, "zones"), paths
+
+
+def run_cli_dir(dev, tmp, vids, zones, conf, mapping, out, multicam, visualize=False):
+    """The CLI over a directory of videos, serial or with --multicam.
+    Returns {camera-frames/s of the loops (decode to readback, no model
+    init, CSV or MP4), the CLI's wall, the kernel counts of that run, each
+    camera's frames, CSV rows and MP4 path}."""
+    import pandas as pd
+    import torch
+
+    from vehicle_counting_tpu_torch import run
+
+    out_dir = os.path.join(tmp, out)
+    args = run.parser.parse_args(["--input_path", vids, "--output_path", out_dir, "--device", str(dev),
+                                  "--mapping", json.dumps(mapping), *(("--multicam",) if multicam else ()),
+                                  *(() if visualize else ("--no_visualize",))])
+    config, cam_config = run.load_configs(args)
+    config.min_conf = conf
+    cam_config.zone_path = zones
+    counters = kernel_counters()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    results = run.main(args, config, cam_config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    failed = [r for r in results if not r.get("csv")]
+    if failed:
+        raise AssertionError(f"CLI over {vids} ({'multicam' if multicam else 'serial'}): failed {failed}")
+    frames = [r["frames"] for r in results]
+    if multicam:
+        fps = results[0]["fps"]  # one group: the group's camera-frames/s
+    else:
+        fps = sum(frames) / sum(r["frames"] / r["fps"] for r in results)
+    cams = [os.path.basename(r["csv"])[:-4] for r in results]
+    return {"fps": fps, "wall_s": wall, "launches": launches, "frames": frames, "batch": config.detect_batch,
+            "dfs": {c: pd.read_csv(r["csv"]) for c, r in zip(cams, results)},
+            "mp4": {c: os.path.join(out_dir, c + ".mp4") for c in cams}}
+
+
+def _csv_diff(a, b):
+    """(rows that differ, the first differing row of each) over every
+    column but color, rows aligned in order."""
+    cols = [c for c in a.columns if c != "color"]
+    if a[cols].equals(b[cols]):
+        return 0, None
+    n = max(len(a), len(b))
+    x, y = a[cols].reindex(range(n)), b[cols].reindex(range(n))
+    bad = ~((x == y) | (x.isna() & y.isna())).all(axis=1)
+    first = int(np.argmax(bad.to_numpy()))
+    return int(bad.sum()), {"row": first, "serial": x.iloc[first].to_dict(), "multicam": y.iloc[first].to_dict()}
+
+
+def run_multicam_cli(dev, tmp, vids, zones, conf, mapping):
+    """`run.py --multicam` on MC_FRAMES videos (default config: B=128, bf16;
+    the calibrated min_conf and mapping): CSVs and MP4s written, K1
+    launched, K2 launched once per frame-round for all cameras, no K3. Then
+    the serial CLI over the same directory: each camera's CSV against its
+    serial one (all columns but color; a difference is counted and its
+    first row printed: bf16 rounding of the tracker's batched matmul may
+    differ across class counts). Then camera-frames/s without the MP4 pass,
+    serial and multi-camera in turns."""
+    mc = run_cli_dir(dev, tmp, vids, zones, conf, mapping, "out_mc", multicam=True, visualize=True)
+    rounds = -(-max(MC_FRAMES) // mc["batch"]) * mc["batch"]
+    if mc["frames"] != list(MC_FRAMES):
+        raise AssertionError(f"multi-camera CLI: frames {mc['frames']}, want {list(MC_FRAMES)}")
+    for cam, mp4 in mc["mp4"].items():
+        if not (os.path.exists(mp4) and os.path.getsize(mp4) > 0):
+            raise AssertionError(f"multi-camera CLI wrote no MP4 for {cam}")
+    lc = mc["launches"]
+    if lc["crops"] <= 0 or lc["cascade"] != rounds or lc["cascade_k3"] or lc["match_stage"]:
+        raise AssertionError(f"multi-camera CLI launches {lc}: want K1 > 0, K2 = {rounds} (one per frame-round), no K3")
+    fps = {"multicam": [mc["fps"]], "serial": []}
+    walls = {"multicam": [mc["wall_s"]], "serial": []}
+    diff, serial_launches = {}, None
+    for i, kind in enumerate(("serial", "multicam", "multicam", "serial")):
+        r = run_cli_dir(dev, tmp, vids, zones, conf, mapping, f"out_mcab{i}", multicam=kind == "multicam")
+        fps[kind].append(r["fps"])
+        walls[kind].append(r["wall_s"])
+        if i == 0:
+            serial_launches = r["launches"]
+            for cam, df in r["dfs"].items():
+                n_bad, first = _csv_diff(df, mc["dfs"][cam])
+                diff[cam] = {"rows_serial": len(df), "rows_multicam": len(mc["dfs"][cam]), "rows_differing": n_bad,
+                             "first": first}
+        elif kind == "multicam":
+            for cam, df in r["dfs"].items():
+                if _csv_diff(df, mc["dfs"][cam])[0]:
+                    raise AssertionError(f"multi-camera CLI: {cam}'s CSV differs between two multi-camera runs")
+    rows = sum(d["rows_multicam"] for d in diff.values())
+    if not rows:
+        raise AssertionError("multi-camera CLI: no CSV row in any camera")
+    print(f"multi-camera CLI, {len(MC_FRAMES)} cameras of {list(MC_FRAMES)} frames: {rows} CSV rows, counts written, "
+          f"MP4s written; launches {lc} (K2 {lc['cascade']} = one per frame-round; the serial CLI over the same "
+          f"videos: K2 {serial_launches['cascade']}, K1 {serial_launches['crops']})")
+    print(f"multi-camera CSV vs serial CSV per camera (all columns but color): {json.dumps(diff, default=str)}")
+    print(f"camera-frames/s of the loops, turns multicam (cold, MP4 after), serial, multicam, multicam, serial: "
+          f"multicam {[round(v, 2) for v in fps['multicam']]}, serial {[round(v, 2) for v in fps['serial']]}; "
+          f"CLI wall s (model init and counting included) multicam {[round(v, 2) for v in walls['multicam']]}, "
+          f"serial {[round(v, 2) for v in walls['serial']]}")
+    return {"launches": lc, "launches_serial": serial_launches, "rounds": rounds, "fps": fps, "wall_s": walls,
+            "csv_vs_serial": diff, "rows": rows}
+
+
+def multicam_tracker_ab(dev, fg):
+    """`scan_frame_inputs` at B=128 in steady state, graph on, K2 route, at
+    N_cam x C = 4, 16 and 32 classes: the graph phase's second batch (state
+    warmed by the first) given to 1, 4 and 8 cameras alike, in turns;
+    ms/frame on the host clock, and one replay's device kernels (count, K2
+    among them, summed device ms) from the card's trace."""
+    import torch
+
+    from vehicle_counting_tpu_torch.parallel.cameras import camera_params
+    from vehicle_counting_tpu_torch.pipeline import step as step_mod
+    from vehicle_counting_tpu_torch.tracking.deepsort import FrameInputs, frame_inputs
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerState
+
+    hp, warmed = fg["hp"], fg["runs"][False, False][0][0]
+    det, feats = fg["batches"][1]
+    b = feats.shape[0]
+    with torch.no_grad():
+        inp = frame_inputs(feats, det["boxes"], det["scores"], det["classes"], det["valid"], hp)
+    cams = (1, 4, 8)
+    cases = {n: (camera_params(hp, n), FrameInputs(*(torch.cat([x] * n, 1) for x in inp))) for n in cams}
+
+    def scan_ms(n):
+        hp_n, inp_n = cases[n]
+        states = TrackerState(*(torch.cat([x] * n) for x in warmed))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            step_mod.scan_frame_inputs(states, inp_n, hp=hp_n, src_hw=SRC_HW)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / b
+
+    for n in cams:
+        scan_ms(n)  # warm-up: the capture
+    t = {n: [] for n in cams}
+    for n in cams + cams[::-1]:
+        t[n].append(scan_ms(n))
+    replay = {}
+    for n in cams:
+        events = device_events(step_mod.frame_runner(cases[n][0], SRC_HW, dev)._step)
+        replay[n * hp.num_classes] = {"device_kernels": len(events), "k2": sum("cascade_kernel" in e for e, _ in events),
+                                      "device_ms": round(sum(ms for _, ms in events), 4)}
+    step_mod.free_frame_runners()
+    res = {"ms_per_frame": {n * hp.num_classes: v for n, v in t.items()}, "replay": replay}
+    print(f"scan_frame_inputs ms/frame (B={b}, steady state, graph on, K2 route) by N_cam x C classes, turns "
+          f"4, 16, 32, 32, 16, 4: {json.dumps(res['ms_per_frame'])}; per camera-frame at 16 / 32 classes: "
+          f"{min(t[4]) / 4:.4f} / {min(t[8]) / 8:.4f} against {min(t[1]):.4f}; one replay: {json.dumps(replay)}")
+    return res
+
+
 def run_stage_bench(dev):
     """stage_bench at the main path's shapes (B=128, reid bf16, chunks of
     128 crops), every stage, few reps; K1 and K2 must have launched."""
@@ -1938,7 +2239,16 @@ def main() -> int:
         fg = check_frame_graph(dev, path, conf, mapping)
         phase("scan: class_mode scan, graph == eager, scan == batched, K3 per class", card)
         sc = check_scan(dev, fg)
+        phase("multicam (a): K2 with the camera axis, C = 4 x 8", card)
+        k2cam = check_k2_cameras(dev)
+        phase("multicam (d): the tracker's frame step at N_cam x C = 4, 16, 32 classes", card)
+        mc_ab = multicam_tracker_ab(dev, fg)
         del fg["batches"], fg["runs"]
+        mc_vids, mc_zones, mc_paths = write_multicam_videos(tmp)
+        phase("multicam (b): f32 multi-camera step, card == card's serial steps == CPU", card)
+        mc_parity = check_multicam_parity(dev, mc_paths)
+        phase("multicam (c): the CLI with --multicam, against the serial CLI", card)
+        mc = run_multicam_cli(dev, tmp, mc_vids, mc_zones, conf, mapping)
         phase("--profile CLI run + profile_summary", card)
         prof = run_profile(dev, tmp, path_sw, zones_sw, conf, mapping)
         phase("--weight CLI run (seeded .pt + .t7)", card)
@@ -1954,12 +2264,15 @@ def main() -> int:
         dict(name="crop_gather", route="cuda", source="vehicle_counting_tpu_torch/csrc/crops.cu",
              replaces="vehicle_counting_tpu/ops/pallas/crops.py:240", launches=launches["crops"],
              launches_bench=launches_bench["crops"], launches_stage_bench=launches_stage["crops"],
-             launches_raw_rgb=launches_raw["crops"], source_720p=k1_src, **k1),
+             launches_raw_rgb=launches_raw["crops"], launches_multicam=mc["launches"]["crops"], source_720p=k1_src, **k1),
         dict(name="cascade_match", route="cuda", source="vehicle_counting_tpu_torch/csrc/cascade.cu",
              replaces="vehicle_counting_tpu/ops/pallas/cascade.py:887", launches=launches["cascade"],
              launches_bench=launches_bench["cascade"], launches_stage_bench=launches_stage["cascade"],
              launches_raw_rgb=launches_raw["cascade"], launches_per_frame=launches["cascade"] / N_FRAMES,
-             warmup_launches=warmup["cascade"], replay_in_trace=fg["replay_in_trace"]["k2"], **k2),
+             warmup_launches=warmup["cascade"], replay_in_trace=fg["replay_in_trace"]["k2"],
+             launches_multicam=mc["launches"]["cascade"], multicam_frame_rounds=mc["rounds"],
+             launches_multicam_serial=mc["launches_serial"]["cascade"], camera_axis=k2cam,
+             multicam_replay=mc_ab["replay"], **k2),
         dict(name="cascade_match_batched", route="cuda", source="vehicle_counting_tpu_torch/csrc/cascade.cu",
              replaces="vehicle_counting_tpu/ops/pallas/cascade.py:379", launches=sc["launches_k2_route"]["cascade_k3"],
              path="class_mode scan (the graph phase's frames)", launches_per_frame=sc["launches_k2_route"]["cascade_k3"]
@@ -1995,6 +2308,11 @@ def main() -> int:
     print(f"CLI frames/s over {N_SWITCHED} frames without the MP4 pass, thin I420 / raw RGB: {json.dumps(fps_raw)} [{card}]")
     print(f"tracker_scan ms/frame, B=128 steady state, graph on, batched / scan: {json.dumps(sc['ab'])} [{card}]")
     print(f"K1 on the raw 720x1280 source: {json.dumps(k1_src)} [{card}]")
+    print(f"K2 with the camera axis (C = {k2cam['c']}): {json.dumps(k2cam['times'])} [{card}]")
+    print(f"tracker ms/frame by N_cam x C classes (B=128 steady, graph on): {json.dumps(mc_ab)} [{card}]")
+    print(f"multi-camera f32 parity: {json.dumps(mc_parity)} [{card}]")
+    print(f"multi-camera CLI camera-frames/s {json.dumps(mc['fps'])}, wall s {json.dumps(mc['wall_s'])}, launches "
+          f"{json.dumps(mc['launches'])}, CSV vs serial {json.dumps(mc['csv_vs_serial'], default=str)} [{card}]")
     print(f"launch cost, us: {json.dumps(k7['probe'])} [{card}]")
     print(f"stage_bench ms/frame (min, median): {json.dumps(stages)} [{card}]")
     print(f"bench: {json.dumps(metric)}; streamed p50 {telemetry['p50_fps']} min {telemetry['min_fps']} best "

@@ -57,6 +57,9 @@ PORT_MODULES = [
     "vehicle_counting_tpu_torch.evaluation",
     "vehicle_counting_tpu_torch.ops.fusion",
     "vehicle_counting_tpu_torch.tracking.graph",
+    "vehicle_counting_tpu_torch.parallel",
+    "vehicle_counting_tpu_torch.parallel.cameras",
+    "vehicle_counting_tpu_torch.pipeline.multicam",
 ]
 
 
@@ -110,37 +113,63 @@ def test_no_source_imports_the_jax_package():
     assert not bad, bad
 
 
-def _tiny_detect_only_run(run, tmp_path):
-    """`--detect_only` on a 3-frame 64x48 video, random-init yolov5n at
-    64x64 on the CPU: it runs and writes the detections CSV's header."""
+def _tiny_videos(tmp_path, n_videos):
+    """n_videos 3-frame 64x48 videos in one directory, with zone files."""
+    import json
+
     import cv2
     import numpy as np
 
+    vids, zones = tmp_path / "vids", tmp_path / "zones"
+    vids.mkdir()
+    zones.mkdir()
+    for v in range(n_videos):
+        writer = cv2.VideoWriter(str(vids / f"tiny{v}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (64, 48))
+        for i in range(3):
+            writer.write(np.full((48, 64, 3), 40 * i + v, np.uint8))
+        writer.release()
+        (zones / f"tiny{v}.json").write_text(json.dumps({"shapes": [
+            {"label": "zone", "points": [[0, 0], [64, 0], [64, 48], [0, 48]]},
+            {"label": "direction01", "points": [[0, 24], [64, 24]]}]}))
+    return str(vids), str(zones)
+
+
+def _tiny_run(run, tmp_path, flag):
+    """`--detect_only` on one 3-frame 64x48 video, or `--multicam` on two,
+    random-init yolov5n at 64x64 on the CPU: it runs and writes the
+    detections CSV's header, or each camera's counting CSV."""
     from vehicle_counting_tpu_torch.configs import config_from_dict, default_cam_config, default_config
 
-    video = str(tmp_path / "tiny.mp4")
-    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (64, 48))
-    for i in range(3):
-        writer.write(np.full((48, 64, 3), 40 * i, np.uint8))
-    writer.release()
-    args = run.parser.parse_args(["--input_path", video, "--output_path", str(tmp_path / "out"), "--device", "cpu",
-                                  "--detect_only"])
+    vids, zones = _tiny_videos(tmp_path, 2 if flag == "--multicam" else 1)
+    inp = vids if flag == "--multicam" else os.path.join(vids, "tiny0.mp4")
+    args = run.parser.parse_args(["--input_path", inp, "--output_path", str(tmp_path / "out"), "--device", "cpu",
+                                  "--no_visualize", flag])
     config = config_from_dict(default_config(), {"model_name": "yolov5n", "image_size": [64, 64], "detect_batch": 2,
-                                                  "compute_dtype": "float32"})
-    (res,) = run.main(args, config, default_cam_config())
-    assert res["frames"] == 3 and os.path.basename(res["csv"]) == "tiny_detections.csv"
+                                                  "compute_dtype": "float32", "max_det": 8})
+    cam_config = default_cam_config()
+    cam_config.zone_path = zones
+    results = run.main(args, config, cam_config)
+    if flag == "--multicam":
+        assert [r["camera"] for r in results] == ["tiny0", "tiny1"]
+        for r in results:
+            assert r["error"] is None and r["frames"] == 3
+            with open(r["csv"]) as f:
+                assert f.readline().strip().startswith("track_id,frame_id,box")
+        return
+    (res,) = results
+    assert res["frames"] == 3 and os.path.basename(res["csv"]) == "tiny0_detections.csv"
     with open(res["csv"]) as f:
         assert f.readline().strip() == "frame_id,x1,y1,x2,y2,score,label"
 
 
 @pytest.mark.parametrize("flag", ["--multicam", "--frame_parallel", "--detect_only"])
 def test_cli_unported_flags_raise(flag, tmp_path):
-    """The two flags whose paths are not ported raise; --detect_only, which
-    is, runs."""
+    """The flag whose path is not ported (--frame_parallel) raises;
+    --detect_only and --multicam, which are, run."""
     from vehicle_counting_tpu_torch import run
 
-    if flag == "--detect_only":
-        _tiny_detect_only_run(run, tmp_path)
+    if flag != "--frame_parallel":
+        _tiny_run(run, tmp_path, flag)
         return
     args = run.parser.parse_args(["--input_path", "v.mp4", "--output_path", str(tmp_path), flag])
     with pytest.raises(SystemExit, match="not yet ported"):

@@ -184,10 +184,19 @@ def tracker_scan(states, det, feats, *, hp: DeepSortParams, src_hw: Tuple[int, i
     runner returned last, and is itself left untouched; clone the returned
     state to keep a snapshot, since the next scan moves those buffers on."""
     inp = frame_inputs(feats, det["boxes"], det["scores"], det["classes"], det["valid"], hp)
-    if use_frame_graph(feats.device):
-        return frame_runner(hp, src_hw, feats.device).run(states, inp)
+    return scan_frame_inputs(states, inp, hp=hp, src_hw=src_hw)
+
+
+def scan_frame_inputs(states, inp: FrameInputs, *, hp: DeepSortParams, src_hw: Tuple[int, int]):
+    """`tracker_scan` over inputs already slotted by class (`frame_inputs`,
+    leaves [B, C, K, ...]), with the same return and the same ownership
+    rule for the state. `hp.num_classes` must be the inputs' class count:
+    the multi-camera step hands in N_cam x C classes."""
+    device = inp.valid.device
+    if use_frame_graph(device):
+        return frame_runner(hp, src_hw, device).run(states, inp)
     outs = []
-    for i in range(feats.shape[0]):
+    for i in range(inp.valid.shape[0]):
         states, out = frame_update(states, FrameInputs(*(x[i] for x in inp)), hp, src_hw)
         outs.append(out)
     return states, TrackerOutputs(*(torch.stack(leaf) for leaf in zip(*outs)))

@@ -2,15 +2,17 @@
 
     python -m vehicle_counting_tpu_torch.run --input_path <video-or-dir> \
         --output_path <dir> [--mapping coco|'{"2": 1, ...}'] [--debug] [--no_visualize] \
-        [--detect_only] [--device cuda|cpu] [--profile [DIR]] [--check_numerics]
+        [--detect_only | --multicam] [--device cuda|cpu] [--profile [DIR]] [--check_numerics]
 
 --detect_only writes {cam}_detections.csv per video (no tracking; score it
 with `python -m vehicle_counting_tpu_torch.evaluation`). --weight takes an
 ultralytics yolov5 v6.0 `.pt` (or an `.npz` state dict); the ReID
 checkpoint is `checkpoint:` in cam_configs.yaml. Without them the detector
 and ReID weights are random-init from fixed seeds: nothing is downloaded.
---multicam and --frame_parallel, whose paths the port does not have yet,
-raise instead of being ignored.
+--multicam counts every video concurrently on the one card
+(pipeline/multicam.py) instead of the reference's strictly serial loop.
+--frame_parallel, whose path the port does not have yet, raises instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -40,11 +42,15 @@ parser.add_argument("--check_numerics", action="store_true",
                     help="raise at the first non-finite detection or tracker state (one extra sync per batch)")
 parser.add_argument("--detect_only", action="store_true",
                     help="detection-only pass: per-frame detections CSV, no tracking")
-# paths of the reference package that are not ported yet: they raise
-parser.add_argument("--multicam", action="store_true", help="not yet ported")
+parser.add_argument("--multicam", action="store_true",
+                    help="process all videos CONCURRENTLY on the one card (same CSV/MP4 artifacts): each round "
+                         "steps B frames of every camera, one tracker frame step for all cameras' classes. "
+                         "Videos are grouped by (frame geometry, per-camera tracking_config), so every camera "
+                         "keeps its own cam_configs.yaml DeepSORT params. Incompatible with --detect_only.")
+# a path of the reference package that is not ported yet: it raises
 parser.add_argument("--frame_parallel", action="store_true", help="not yet ported")
 
-_NOT_PORTED = ("multicam", "frame_parallel")
+_NOT_PORTED = ("frame_parallel",)
 
 
 def _mapping_dict(mapping):
@@ -71,6 +77,16 @@ def main(args, config, cam_config):
             raise SystemExit(f"--{flag} is not yet ported to vehicle_counting_tpu_torch")
     args.mapping_dict = _mapping_dict(args.mapping)
     print(config)
+    if getattr(args, "multicam", False):
+        from vehicle_counting_tpu_torch.pipeline.multicam import MultiCamCountingPipeline
+
+        results = MultiCamCountingPipeline(args, config, cam_config).run(visualize=not args.no_visualize)
+        for r in results:
+            if r.get("csv"):
+                print(f"{r['csv']}: counts={r['counts']}")
+            else:
+                print(f"FAILED {r.get('camera')}: {r.get('error')}")
+        return results
     pipeline = CountingPipeline(args, config, cam_config)
     if args.detect_only:
         results = [pipeline.run_video_detect_only(p) for p in pipeline.all_video_paths]

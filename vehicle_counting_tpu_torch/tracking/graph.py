@@ -54,6 +54,12 @@ class OwnedState(TrackerState):
     generation = None
 
 
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a is b, or a view of b's memory with b's shape, strides and dtype."""
+    return a is b or (a.device == b.device and a.dtype == b.dtype and a.shape == b.shape
+                      and a.stride() == b.stride() and a.data_ptr() == b.data_ptr())
+
+
 def _static_inputs(hp: DeepSortParams, device) -> FrameInputs:
     """One frame's inputs with no detection in them."""
     c, k, f = hp.num_classes, hp.tracker.capacity, hp.tracker.feat_dim
@@ -154,11 +160,14 @@ class FrameRunner:
 
     def _owns(self, states: TrackerState) -> bool:
         """Whether `states` is the buffers themselves, so nothing is to be
-        copied in. A state handed out before another was loaded is refused.
-        A re-wrapped state (`TrackerState(*st)`, `st._replace(...)`) carries
-        no generation: it is owned when every leaf is a buffer, and copied
-        in leaf by leaf otherwise."""
-        mine = [a is b for a, b in zip(states, self.state)]
+        copied in. A leaf is a buffer when it is that tensor or a view of
+        the same memory with the same shape and strides (the multi-camera
+        step hands the buffers out as [N_cam, C, ...] views and gets them
+        back reshaped). A state handed out before another was loaded is
+        refused. A re-wrapped state (`TrackerState(*st)`, `st._replace(...)`)
+        carries no generation: it is owned when every leaf is a buffer, and
+        copied in leaf by leaf otherwise."""
+        mine = [_same_memory(a, b) for a, b in zip(states, self.state)]
         generation = getattr(states, "generation", None)
         if any(mine) and generation is not None and generation != self._generation:
             raise RuntimeError("this tracker state was handed out by the runner before its buffers were "
