@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --cli-ab   # only the CLI's frames/s, repeated (see cli_ab)
     python3 chip_smoke.py --kernel-ab [--root DIR]   # only the K1, K6, K7 checks of a checkout (see kernel_ab)
+    python3 chip_smoke.py --multi-card   # two or more cards: frame-parallel and the fleet across them (see multi_card)
 
 Phases, each fatal on failure:
   build     compile the hand-written kernels (csrc/*.cu) with nvcc, one
@@ -91,6 +92,22 @@ Phases, each fatal on failure:
             MP4s, K1 launched, K2 once per frame-round for all cameras, no
             K3; each camera's CSV against the serial CLI's; camera-frames/s
             of both in turns;
+  framedp   (a) the frame-parallel step on a mesh of [cuda:0] == the serial
+            step, bitwise on every output and state leaf (f32, 2 x B=8,
+            720p I420); (b) on [cuda:0, cuda:0] == the serial step at B/2
+            with the states chained on track ids, mask, boxes, det classes
+            and valid and the integer state leaves; K1 launched by each
+            shard, K2 once per frame; serial and two-shard ms per batch in
+            turns; (c) the CLI with --frame_parallel (a no-op on one card):
+            the default run's CSV rows and launches;
+  serving   (d) `serving.cli export` at bf16, B=128, 720p I420, weights
+            bundled; `verify` in a fresh process: bit_exact, K1 and K2
+            loaded from the artifact's kernels/ and launched by its step,
+            live and artifact ms per batch; `smoke` in a fresh process,
+            frames/s; a detect-only artifact's smoke;
+  multihost (e) a one-rank NCCL group through initialize_multihost: the
+            host_local_to_global / global_to_host_local round trip of
+            (b)'s outputs;
   stage     stage_bench at B=128 (reid bf16, chunks of 128), every stage;
   bench     bench with a short budget; its metric line is parsed;
   profile   the CLI with --profile on 128 frames, then profile_summary on
@@ -124,6 +141,8 @@ VARIANT = "yolov5s"
 KERNELS = ("crops", "cascade", "assignment", "reid_block", "conv_s2", "noop")
 MC_FRAMES = (128, 128, 128, 96)  # the multi-camera CLI's videos
 MC_K2_CAMS = 8  # cameras of K2's camera-axis check: C = 4 x 8 blocks
+FP_B = 8  # frames per batch of the frame-parallel checks (f32)
+SERVE_BATCHES = 4  # chained batches of serving.cli verify and smoke
 
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -142,6 +161,23 @@ def nbytes(*tensors):
 
 def phase(name, card):
     print(f"\n== {name} == [{card}]", flush=True)
+
+
+def host_ms(fn, n=3):
+    """Mean ms per call of n calls on the host clock, every card synchronised
+    before and after (a step may span several cards)."""
+    import torch
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / n
 
 
 def cuda_ms(fn, n):
@@ -1934,6 +1970,293 @@ def multicam_tracker_ab(dev, fg):
     return res
 
 
+def check_framedp(dev, path, mesh_b=None):
+    """The frame-parallel step on the card at f32 (TF32 off), B=FP_B frames
+    of the smoke video per batch (720p host-packed I420), two chained
+    batches, yolov5s, C=4, K=64, the threshold in a gap of the CPU's
+    scores. (a) on a mesh of [cuda:0]: every det and track output and
+    every state leaf bitwise-equal to the serial step's. (b) on `mesh_b`
+    (default [cuda:0, cuda:0]), n shards of FP_B/n: track ids, mask, boxes,
+    the detections' classes and valid and the integer state leaves equal
+    to the serial step at FP_B/n with the states chained (float leaves'
+    largest difference printed); K1 launched by each shard (each shard's
+    count is the serial B/n call's on the same frames), K2 once per frame.
+    Returns (b)'s launches, its outputs for the multi-host phase and the
+    ms per batch of the serial step and of (b) in turns."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.reid import init_reid
+    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, init_yolov5
+    from vehicle_counting_tpu_torch.ops import cascade, crops
+    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, host_letterbox_yuv420, yuv420_content_to_full, yuv420_to_rgb_u8_planar
+    from vehicle_counting_tpu_torch.parallel.frames import make_framedp_step
+    from vehicle_counting_tpu_torch.parallel.mesh import DeviceMesh
+    from vehicle_counting_tpu_torch.pipeline import step as step_mod
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams, TrackerState
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = FP_B
+    net = autoshape_hw(SRC_HW, 640)
+    cfg = YoloConfig(VARIANT, 80)
+    yp_cpu = init_yolov5(torch.Generator().manual_seed(0), cfg)
+    rp, rs = init_reid(torch.Generator().manual_seed(1), device=dev)
+    yuv = torch.from_numpy(host_letterbox_yuv420(first_batch(path, 2 * b), net, content_only=True))
+    rgb = yuv420_to_rgb_u8_planar(yuv420_content_to_full(yuv, SRC_HW, net)).float() / 255.0
+    conf, lut, gap = _gap_conf(yp_cpu, cfg, rgb, 20 * 2 * b)
+    yp, lut = _tree_to(yp_cpu, dev), torch.from_numpy(lut).to(dev)
+    hp = DeepSortParams(tracker=TrackerParams(), num_classes=4)
+    kw = dict(ycfg=cfg, hp=hp, image_size=net, src_hw=SRC_HW, conf_thres=conf, iou_thres=0.45, max_det=300,
+              dtype=torch.float32, frames_format="letterboxed_yuv420")
+    batches = [yuv[i * b:(i + 1) * b].to(dev) for i in range(2)]
+    valid = torch.ones(b, dtype=torch.bool, device=dev)
+    snap = lambda st: TrackerState(*(x.clone() for x in st))
+
+    def serial(shards):
+        """The serial step over both batches, each in `shards` calls of
+        b / shards frames, states chained. -> per batch (det, outs, state
+        snapshot, K1 launches per call)."""
+        n, got, states = b // shards, [], init_states(hp, dev)
+        with torch.no_grad():
+            for fr in batches:
+                parts, k1 = [], []
+                for j in range(shards):
+                    crops.gather_crops_batch.launches = 0
+                    states, det, out = step_mod.pipeline_batch_step(yp, rp, rs, states, fr[j * n:(j + 1) * n],
+                                                                    valid[j * n:(j + 1) * n], lut, **kw)
+                    torch.cuda.synchronize()
+                    k1.append(crops.gather_crops_batch.launches)
+                    parts.append((det, out))
+                det = {k: torch.cat([p[0][k] for p in parts]) for k in parts[0][0]}
+                out = type(parts[0][1])(*(torch.cat([p[1][i] for p in parts]) for i in range(len(parts[0][1]))))
+                got.append((det, out, snap(states), k1))
+        return got
+
+    def framedp(mesh):
+        step = make_framedp_step(mesh, **kw)
+        got, states = [], init_states(hp, dev)
+        crops.gather_crops_batch.launches = cascade.cascade_match_classparallel.launches = 0
+        with torch.no_grad():
+            for fr in batches:
+                states, det, out = step(yp, rp, rs, lut, states, fr, valid)
+                got.append((det, out, snap(states)))
+        torch.cuda.synchronize()
+        return got, {"crops": crops.gather_crops_batch.launches,
+                     "cascade": cascade.cascade_match_classparallel.launches}
+
+    ints = [f for f, x in zip(TrackerState._fields, init_states(hp, "meta")) if not x.is_floating_point()]
+    # (a) one shard on [cuda:0] against the serial step, bitwise everywhere
+    want = serial(1)
+    got, _ = framedp(DeviceMesh((dev,), ("frame",)))
+    for i, ((dw, ow, sw, _), (dg, og, sg)) in enumerate(zip(want, got)):
+        for k in dw:
+            if not torch.equal(dw[k], dg[k]):
+                raise AssertionError(f"framedp (a), one shard: batch {i} det {k} differs from the serial step")
+        for name, x, y in zip(ow._fields + sw._fields, tuple(ow) + tuple(sw), tuple(og) + tuple(sg)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"framedp (a), one shard: batch {i} {name} differs from the serial step")
+    tracked = sum(int(o.mask.sum()) for _, o, _ in got)
+    if not tracked:
+        raise AssertionError("framedp (a): no track output in two batches")
+    print(f"framedp (a): mesh [cuda:0], f32, 2 x B={b} at 720p I420: every det / track output and all "
+          f"{len(TrackerState._fields)} state leaves bitwise-equal to the serial step; {tracked} track outputs, "
+          f"{int(sum(d['valid'].sum() for d, _, _ in got))} detections (threshold gap {gap:.2e})")
+
+    # (b) n shards against the serial step at b/n, chained
+    mesh2 = mesh_b or DeviceMesh((dev, dev), ("frame",))
+    want = serial(mesh2.size)
+    got, launches = framedp(mesh2)
+    float_err = {}
+    for i, ((dw, ow, sw, _), (dg, og, sg)) in enumerate(zip(want, got)):
+        for k in ("classes", "valid"):
+            if not torch.equal(dw[k], dg[k]):
+                raise AssertionError(f"framedp (b), {mesh2.size} shards: batch {i} det {k} differs from the serial step")
+        for name in ("ids", "mask", "boxes"):
+            if not torch.equal(getattr(ow, name), getattr(og, name)):
+                raise AssertionError(f"framedp (b), {mesh2.size} shards: batch {i} track {name} differs from the serial step")
+        for name in ints:
+            if not torch.equal(getattr(sw, name), getattr(sg, name)):
+                raise AssertionError(f"framedp (b), {mesh2.size} shards: batch {i} state {name} differs from the serial step")
+        for name in [f for f in TrackerState._fields if f not in ints] + ["det boxes", "det scores"]:
+            x, y = (dw[name[4:]], dg[name[4:]]) if name.startswith("det ") else (getattr(sw, name), getattr(sg, name))
+            float_err[name] = max(float_err.get(name, 0.0), float((x.float() - y.float()).abs().max()))
+    per_shard = [k for _, _, _, k1 in want for k in k1]
+    if launches["crops"] != sum(per_shard) or min(per_shard) <= 0:
+        raise AssertionError(f"framedp (b): K1 launches {launches['crops']}, per shard of the serial calls {per_shard}")
+    if launches["cascade"] != 2 * b:
+        raise AssertionError(f"framedp (b): K2 launches {launches['cascade']} for {2 * b} frames")
+
+    step2 = make_framedp_step(mesh2, **kw)
+    runs = {"serial": lambda: step_mod.pipeline_batch_step(yp, rp, rs, init_states(hp, dev), batches[0], valid, lut, **kw),
+            "two_shards": lambda: step2(yp, rp, rs, lut, init_states(hp, dev), batches[0], valid)}
+    t = {k: [] for k in runs}
+    with torch.no_grad():
+        for k in ("serial", "two_shards", "two_shards", "serial"):
+            t[k].append(host_ms(runs[k]))
+    step_mod.free_frame_runners()
+    res = {"b": b, "mesh": [str(d) for d in mesh2.devices], "launches": launches, "k1_per_shard": per_shard,
+           "k2_per_frame": launches["cascade"] / (2 * b), "float_max_diff": float_err, "ms_per_batch": t, "gap": gap}
+    print(f"framedp (b): mesh {res['mesh']}, 2 x B={b}: track ids, mask, boxes, det classes / valid and "
+          f"{len(ints)} integer state leaves equal to the serial step at B/{mesh2.size} chained; K1 launches per "
+          f"shard (batch by batch, shard by shard) {per_shard}, K2 {launches['cascade']} = one per frame; "
+          f"{json.dumps(res)}")
+    res["outputs"] = got[-1]
+    return res
+
+
+def run_frame_parallel_cli(dev, tmp, path, zones, conf, mapping, df, launches_default):
+    """`run --frame_parallel` on the smoke video (one card: a no-op, as in
+    the JAX package): the default run's CSV rows, all columns but color,
+    and its K1 / K2 launches."""
+    _, launches, got = run_pipeline(dev, tmp, path, zones, conf, mapping, N_FRAMES, "out_fp",
+                                    extra_args=("--frame_parallel", "--no_visualize"))
+    n_bad, first = _csv_diff(df, got)
+    if n_bad or len(got) != len(df):
+        raise AssertionError(f"--frame_parallel: {n_bad} rows differ from the default run's ({len(got)} vs "
+                             f"{len(df)}), first {first}")
+    for name in ("crops", "cascade"):
+        if launches[name] != launches_default[name]:
+            raise AssertionError(f"--frame_parallel: {launches[name]} {name} launches, the default run "
+                                 f"{launches_default[name]}")
+    res = {"rows": len(got), "rows_differing": n_bad, "launches": launches}
+    print(f"--frame_parallel on one card: {json.dumps(res)} (the default run's CSV and launches)")
+    return res
+
+
+def _serving_config(dev, tmp):
+    """(a configs.yaml, a --mapping) for the serving phase, calibrated as
+    bench.py's load is on the random frames `serving.cli verify` draws (its
+    seed 0), at bf16: the 4 classes the random-init detector finds most in
+    frame 0 are tracked, and min_conf keeps ~30 of their detections per
+    frame."""
+    import torch
+    import yaml
+
+    from vehicle_counting_tpu_torch.benchmarks.load import calibrate_from_det
+    from vehicle_counting_tpu_torch.configs import default_config
+    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params, init_yolov5
+    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw
+    from vehicle_counting_tpu_torch.pipeline.step import detect_only_step
+    from vehicle_counting_tpu_torch.serving.artifact import serving_frames_shape
+
+    net = autoshape_hw(SRC_HW, 640)
+    b = int(default_config().detect_batch)
+    yp = cast_params(init_yolov5(torch.Generator().manual_seed(0), YoloConfig(VARIANT, 80), dev), torch.bfloat16)
+    fshape = serving_frames_shape("letterboxed_yuv420", b, SRC_HW, net)
+    frames = torch.from_numpy(np.random.default_rng(0).integers(0, 255, fshape, dtype="uint8")).to(dev)
+    with torch.no_grad():
+        det = detect_only_step(yp, frames, ycfg=YoloConfig(VARIANT, 80), image_size=net, src_hw=SRC_HW,
+                               conf_thres=0.0, max_det=300, dtype=torch.bfloat16)
+    conf, _, top4 = calibrate_from_det(det, 30)
+    settings = default_config().to_dict()
+    settings["min_conf"] = conf
+    path = os.path.join(tmp, "serving_configs.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"settings": settings}, f)
+    mapping = json.dumps({str(c): i for i, c in enumerate(top4)})
+    print(f"serving config: min_conf {conf:.6f}, mapping {mapping}")
+    return path, mapping
+
+
+def _serving_cli(*argv):
+    """`python -m vehicle_counting_tpu_torch.serving.cli <argv>` in a fresh
+    process from this checkout; -> its last stdout line as JSON."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "vehicle_counting_tpu_torch.serving.cli", *argv], cwd=here,
+                          env=dict(os.environ, PYTHONPATH=here), capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"serving.cli {argv[0]} failed (rc {proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def run_serving(dev, tmp):
+    """(d) `serving.cli export` of the production config (bf16, B=128, 720p
+    I420, yolov5s, weights bundled; min_conf and the class map from
+    `_serving_config`), then
+    `verify` in a fresh process: bit_exact, K1 and K2 loaded from the
+    artifact's own kernels/ (not build/kernels/) and launched by its
+    step, live and artifact ms per batch; `smoke` in a fresh process
+    (frames/s); then a detect-only artifact and its `smoke`."""
+    from vehicle_counting_tpu_torch import _build
+    from vehicle_counting_tpu_torch.serving import cli
+
+    cfg, mapping = _serving_config(dev, tmp)
+    art, art_det = os.path.join(tmp, "artifact"), os.path.join(tmp, "artifact_detect")
+    t0 = time.perf_counter()
+    cli.main(["export", "--out", art, "--config", cfg, "--mapping", mapping, "--device", str(dev)])
+    export_s = time.perf_counter() - t0
+    with open(os.path.join(art, "manifest.json")) as f:
+        manifest = json.load(f)
+    if sorted(manifest["kernels"]) != ["cascade", "crops"]:
+        raise AssertionError(f"serving: the artifact ships kernels {sorted(manifest['kernels'])}, want cascade, crops")
+    verify = _serving_cli("verify", "--artifact", art, "--batches", str(SERVE_BATCHES))
+    kdir = os.path.realpath(os.path.join(art, "kernels"))
+    build_dir = os.path.dirname(_build.library_path("crops"))
+    frames = 2 * SERVE_BATCHES * verify["batch"]  # two passes of the chain
+    if not verify["bit_exact"]:
+        raise AssertionError(f"serving verify: {verify['mismatched_arrays']} arrays differ from the live step")
+    for name in ("crops", "cascade"):
+        if os.path.realpath(verify["kernels_from"][name]) != kdir or verify["kernels_from"][name] == build_dir:
+            raise AssertionError(f"serving verify: {name} loaded from {verify['kernels_from'][name]}, not {kdir}")
+    if verify["launches"]["K1"] <= 0 or verify["launches"]["K2"] != frames:
+        raise AssertionError(f"serving verify: the artifact's step launched {verify['launches']} (K2 {frames} wanted)")
+    smoke = _serving_cli("smoke", "--artifact", art, "--batches", str(SERVE_BATCHES))
+    cli.main(["export", "--out", art_det, "--config", cfg, "--mapping", mapping, "--device", str(dev), "--detect_only"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["smoke", "--artifact", art_det, "--batches", str(SERVE_BATCHES)])
+    smoke_det = json.loads(out.getvalue().strip().splitlines()[-1])
+    res = {"export_s": export_s, "verify": verify, "smoke": smoke, "smoke_detect_only": smoke_det,
+           "kernels": {k: v["key"] for k, v in manifest["kernels"].items()}}
+    print(f"serving: export {export_s:.2f} s; verify (fresh process) bit_exact {verify['bit_exact']}, kernels from "
+          f"{verify['kernels_from']}, launches {verify['launches']}, live {verify['live_ms_per_batch']:.3f} / artifact "
+          f"{verify['artifact_ms_per_batch']:.3f} ms per batch of {verify['batch']}; smoke {smoke['fps']:.2f} frames/s "
+          f"({smoke['dets_last_batch']} detections, {smoke['tracks_last_batch']} track outputs in the last batch); "
+          f"detect-only smoke {smoke_det['fps']:.2f} frames/s")
+    return res
+
+
+def check_multihost_card(dev, outputs):
+    """(e) a one-rank NCCL group through `initialize_multihost` on the card:
+    `host_local_to_global` then `global_to_host_local` of framedp (b)'s
+    last outputs give them back, and the gathered tensors equal them."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from vehicle_counting_tpu_torch.parallel.mesh import (
+        global_to_host_local,
+        host_local_to_global,
+        initialize_multihost,
+        make_global_mesh,
+    )
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    det, out, _ = outputs
+    initialize_multihost(f"localhost:{port}", 1, 0, device=dev)
+    try:
+        mesh = make_global_mesh(("frame",))
+        names = []
+        for name, x in [("det " + k, v) for k, v in sorted(det.items())] + list(zip(out._fields, out)):
+            full = host_local_to_global(mesh, ("frame",), x)
+            if not (torch.equal(full, x) and torch.equal(global_to_host_local(full), x)):
+                raise AssertionError(f"multi-host round trip on the card changed {name}")
+            names.append(name)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    res = {"backend": backend, "mesh": [str(d) for d in mesh.devices], "tensors": len(names)}
+    print(f"multi-host (e): {json.dumps(res)}: every tensor of framedp (b)'s last batch back through the round trip")
+    return res
+
+
 def run_stage_bench(dev):
     """stage_bench at the main path's shapes (B=128, reid bf16, chunks of
     128 crops), every stage, few reps; K1 and K2 must have launched."""
@@ -2142,7 +2465,233 @@ def kernel_ab(argv) -> int:
     return 0
 
 
+def framedp_production_ab(dev, path, mesh, conf, mapping, b=128):
+    """The main path's shapes (yolov5s bf16, B=128 of the smoke video, 720p
+    host-packed I420, the calibrated load): `pipeline_batch_step` on one card
+    against the frame-parallel step over `mesh`, each from a fresh tracker
+    state, ms per batch on the host clock in turns (serial, frame-parallel,
+    frame-parallel, serial), every card synchronised."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.detector import class_lut
+    from vehicle_counting_tpu_torch.models.reid import cast_conv_weights, init_reid
+    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params, init_yolov5
+    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, host_letterbox_yuv420
+    from vehicle_counting_tpu_torch.parallel.frames import make_framedp_step
+    from vehicle_counting_tpu_torch.pipeline import step as step_mod
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams
+
+    net = autoshape_hw(SRC_HW, 640)
+    cfg = YoloConfig(VARIANT, 80)
+    yp = cast_params(init_yolov5(torch.Generator().manual_seed(0), cfg, dev), torch.bfloat16)
+    rp, rs = init_reid(torch.Generator().manual_seed(1), device=dev)
+    rp = cast_conv_weights(rp, torch.bfloat16)
+    lut = torch.from_numpy(class_lut(80, mapping)).to(dev)
+    hp = DeepSortParams(tracker=TrackerParams(feat_dtype="bfloat16"), num_classes=4)
+    kw = dict(ycfg=cfg, hp=hp, image_size=net, src_hw=SRC_HW, conf_thres=conf, iou_thres=0.45, max_det=300,
+              dtype=torch.bfloat16, frames_format="letterboxed_yuv420")
+    yuv = torch.from_numpy(host_letterbox_yuv420(first_batch(path, b), net, content_only=True)).to(dev)
+    valid = torch.ones(b, dtype=torch.bool, device=dev)
+    step = make_framedp_step(mesh, **kw)
+    runs = {"serial": lambda: step_mod.pipeline_batch_step(yp, rp, rs, init_states(hp, dev), yuv, valid, lut, **kw),
+            "framedp": lambda: step(yp, rp, rs, lut, init_states(hp, dev), yuv, valid)}
+    t = {k: [] for k in runs}
+    with torch.no_grad():
+        for fn in runs.values():
+            fn()  # warm-up: the frame graph's capture, cuDNN's plans on every card
+        for k in ("serial", "framedp", "framedp", "serial"):
+            t[k].append(host_ms(runs[k]))
+    step_mod.free_frame_runners()
+    res = {"b": b, "mesh": [str(d) for d in mesh.devices], "ms_per_batch": t}
+    print(f"frame-parallel at the main path's shapes: {json.dumps(res)}")
+    return res
+
+
+def framedp_cli_ab(dev, tmp, path, zones, conf, mapping):
+    """`run` on the smoke video without the MP4 pass, default and with
+    --frame_parallel (every card) in turns: frames/s, K1 / K2 launches,
+    and the frame-parallel CSV against the default one (rows differing are
+    counted, not refused: at bf16 a detection within ~1e-3 of a threshold
+    may flip with the batch extent, as the JAX CLI's help says)."""
+    fps, launches, dfs = {"default": [], "frame_parallel": []}, {}, {}
+    for i, kind in enumerate(("default", "frame_parallel", "frame_parallel", "default")):
+        extra = ("--no_visualize",) + (("--frame_parallel",) if kind == "frame_parallel" else ())
+        got, launches[kind], dfs[kind] = run_pipeline(dev, tmp, path, zones, conf, mapping, N_FRAMES, f"out_mc{i}",
+                                                      extra_args=extra)
+        fps[kind].append(got)
+    if launches["frame_parallel"]["cascade"] != N_FRAMES or launches["frame_parallel"]["crops"] <= 0:
+        raise AssertionError(f"--frame_parallel over every card: launches {launches['frame_parallel']}")
+    n_bad, first = _csv_diff(dfs["default"], dfs["frame_parallel"])
+    res = {"fps": fps, "launches": launches, "rows": {k: len(v) for k, v in dfs.items()}, "rows_differing": n_bad,
+           "first_differing": first}
+    print(f"--frame_parallel over every card against the default run: {json.dumps(res, default=str)}")
+    return res
+
+
+FLEET_CAMS = 2  # cameras per process of the --multi-card fleet
+
+
+def fleet(addr, n, rank, device):
+    """One process of the camera fleet: joins the process group at `addr`
+    as `rank` of `n` (`initialize_multihost`: NCCL on a card), runs its
+    FLEET_CAMS cameras (8 random 720p frames each, seeded by the global
+    camera id; yolov5s f32) through `multicam_batch_step` with no
+    collective, holds them against its serial steps, then gathers every
+    rank's track outputs (`host_local_to_global`) and holds each camera's
+    against its serial step, and the round trip (`global_to_host_local`)
+    against its own. Prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from vehicle_counting_tpu_torch.models.reid import init_reid
+    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, init_yolov5
+    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, host_letterbox_yuv420
+    from vehicle_counting_tpu_torch.parallel.cameras import camera_params, multicam_batch_step, regroup_states
+    from vehicle_counting_tpu_torch.parallel.mesh import (
+        global_to_host_local,
+        host_local_to_global,
+        initialize_multihost,
+        make_global_mesh,
+    )
+    from vehicle_counting_tpu_torch.pipeline.step import pipeline_batch_step
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams
+
+    dev = torch.device(device)
+    initialize_multihost(addr, n, rank, device=dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_global_mesh(("cam",))
+    cfg, b, net = YoloConfig(VARIANT, 80), 8, autoshape_hw(SRC_HW, 640)
+    yp = init_yolov5(torch.Generator().manual_seed(0), cfg, dev)
+    rp, rs = init_reid(torch.Generator().manual_seed(1), device=dev)
+    hp = DeepSortParams(tracker=TrackerParams(), num_classes=4)
+    lut = torch.arange(80, dtype=torch.int32, device=dev) % 4
+    kw = dict(ycfg=cfg, hp=hp, image_size=net, src_hw=SRC_HW, conf_thres=0.25, iou_thres=0.45, max_det=300,
+              dtype=torch.float32, frames_format="letterboxed_yuv420")
+    valid = torch.ones(b, dtype=torch.bool, device=dev)
+
+    def frames(g):
+        rgb = np.random.default_rng(SEED + 90 + g).integers(0, 255, (b,) + SRC_HW + (3,), np.uint8)
+        return torch.from_numpy(host_letterbox_yuv420(rgb, net, content_only=True)).to(dev)
+
+    def serial(g):
+        with torch.no_grad():
+            _, det, out = pipeline_batch_step(yp, rp, rs, init_states(hp, dev), frames(g), valid, lut, **kw)
+        return int(det["valid"].sum()), out
+
+    mine = [rank * FLEET_CAMS + c for c in range(FLEET_CAMS)]
+    states = regroup_states(init_states(camera_params(hp, FLEET_CAMS), dev), (FLEET_CAMS, hp.num_classes))
+    with torch.no_grad():
+        _, touts = multicam_batch_step(yp, rp, rs, states, torch.stack([frames(g) for g in mine]),
+                                       valid.expand(FLEET_CAMS, b).contiguous(), lut, **kw)
+    want = {g: serial(g) for g in range(n * FLEET_CAMS)}
+    for c, g in enumerate(mine):
+        for name in ("ids", "mask", "boxes"):
+            if not torch.equal(getattr(touts, name)[c], getattr(want[g][1], name)):
+                raise AssertionError(f"fleet rank {rank}: camera {g} track {name} differs from its serial step")
+    for name in ("ids", "mask", "boxes"):
+        local = getattr(touts, name)
+        full = host_local_to_global(mesh, ("cam",), local)
+        if not torch.equal(global_to_host_local(full), local):
+            raise AssertionError(f"fleet rank {rank}: the round trip changed {name}")
+        for g in range(full.shape[0]):
+            if not torch.equal(full[g], getattr(want[g][1], name)):
+                raise AssertionError(f"fleet rank {rank}: gathered camera {g} track {name} differs from its serial step")
+    res = {"rank": rank, "ranks": n, "device": str(dev), "backend": dist.get_backend(), "cams": mine,
+           "detections": sum(d for d, _ in want.values()), "track_outputs": sum(int(o.mask.sum()) for _, o in want.values())}
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps({"fleet": res}))
+    return res
+
+
+def run_fleet(n):
+    """n processes of this script (`--fleet-worker`), one per card, as one
+    NCCL group on localhost; each must print its JSON line and exit 0."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fleet-worker", f"localhost:{port}", str(n),
+                               str(r)], cwd=here, env=dict(os.environ, PYTHONPATH=here), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    res = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith('{"fleet"')]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"fleet rank {r} failed (rc {p.returncode}):\n{out[-3000:]}")
+        res.append(json.loads(lines[-1])["fleet"])
+    print(f"fleet of {n} processes: {json.dumps(res)}")
+    return res
+
+
+def fleet_worker(argv) -> int:
+    """`python3 chip_smoke.py --fleet-worker ADDR N RANK`: one process of
+    `run_fleet`, driving card RANK."""
+    addr, n, rank = argv[1], int(argv[2]), int(argv[3])
+    fleet(addr, n, rank, f"cuda:{rank}")
+    return 0
+
+
+def multi_card(argv) -> int:
+    """`python3 chip_smoke.py --multi-card`: what exists only across cards,
+    on every card of the machine (two or more; one JSON line at the end):
+    (a) `check_framedp` with its shards over every card (f32, 2 x B=8: one
+    shard bitwise == serial, n shards == the serial step at B/n chained,
+    K1 per shard, K2 per frame); (b) the main path's shapes, the serial
+    step on one card against the frame-parallel step over every card, ms
+    per batch in turns; (c) `run --frame_parallel` against the default run
+    on the smoke video, in turns; (d) the camera fleet, one process per
+    card joined over NCCL (`run_fleet`)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"chip_smoke --multi-card: {n} CUDA device(s); this mode needs two or more", file=sys.stderr)
+        return 2
+    from vehicle_counting_tpu_torch import _build
+    from vehicle_counting_tpu_torch.parallel.mesh import make_mesh
+    from vehicle_counting_tpu_torch.utils.device import card_line
+
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    print(f"[cards] {n} x {torch.cuda.get_device_name(0)}; {card}")
+    _build.load_all(("crops", "cascade"))
+    mesh = make_mesh(None, ("frame",))
+    with tempfile.TemporaryDirectory() as tmp:
+        path, zones = write_video(tmp)
+        conf, mapping = calibrate(dev, path)
+        phase(f"multi-card (a): the frame-parallel step, shards over {n} cards", card)
+        fp = check_framedp(dev, path, mesh)
+        fp.pop("outputs")
+        phase("multi-card (b): the main path's shapes, one card against every card", card)
+        ab = framedp_production_ab(dev, path, mesh, conf, mapping)
+        phase("multi-card (c): the CLI with --frame_parallel against the default run", card)
+        cli = framedp_cli_ab(dev, tmp, path, zones, conf, mapping)
+    phase(f"multi-card (d): the camera fleet, {n} processes over NCCL", card)
+    fl = run_fleet(n)
+    print(json.dumps({"multi_card": {"cards": n, "card": card, "framedp": fp, "main_path_shapes": ab, "cli": cli,
+                                     "fleet": fl}}, default=str))
+    return 0
+
+
 def main() -> int:
+    if "--multi-card" in sys.argv[1:]:
+        return multi_card(sys.argv[1:])
+    if "--fleet-worker" in sys.argv[1:]:
+        return fleet_worker(sys.argv[1:])
     if "--cli-ab" in sys.argv[1:]:
         return cli_ab(sys.argv[1:])
     if "--kernel-ab" in sys.argv[1:]:
@@ -2249,6 +2798,14 @@ def main() -> int:
         mc_parity = check_multicam_parity(dev, mc_paths)
         phase("multicam (c): the CLI with --multicam, against the serial CLI", card)
         mc = run_multicam_cli(dev, tmp, mc_vids, mc_zones, conf, mapping)
+        phase("framedp (a), (b): the frame-parallel step on one card, one shard and two", card)
+        fp = check_framedp(dev, path)
+        phase("framedp (c): the CLI with --frame_parallel", card)
+        fp_cli = run_frame_parallel_cli(dev, tmp, path, zones, conf, mapping, df, launches)
+        phase("serving (d): export, verify in a fresh process, smoke", card)
+        serve = run_serving(dev, tmp)
+        phase("multi-host (e): a one-rank NCCL group, the host_local_to_global round trip", card)
+        mh = check_multihost_card(dev, fp.pop("outputs"))
         phase("--profile CLI run + profile_summary", card)
         prof = run_profile(dev, tmp, path_sw, zones_sw, conf, mapping)
         phase("--weight CLI run (seeded .pt + .t7)", card)
@@ -2264,7 +2821,9 @@ def main() -> int:
         dict(name="crop_gather", route="cuda", source="vehicle_counting_tpu_torch/csrc/crops.cu",
              replaces="vehicle_counting_tpu/ops/pallas/crops.py:240", launches=launches["crops"],
              launches_bench=launches_bench["crops"], launches_stage_bench=launches_stage["crops"],
-             launches_raw_rgb=launches_raw["crops"], launches_multicam=mc["launches"]["crops"], source_720p=k1_src, **k1),
+             launches_raw_rgb=launches_raw["crops"], launches_multicam=mc["launches"]["crops"], source_720p=k1_src,
+             launches_framedp=fp["launches"]["crops"], launches_framedp_per_shard=fp["k1_per_shard"],
+             launches_serving_verify=serve["verify"]["launches"]["K1"], **k1),
         dict(name="cascade_match", route="cuda", source="vehicle_counting_tpu_torch/csrc/cascade.cu",
              replaces="vehicle_counting_tpu/ops/pallas/cascade.py:887", launches=launches["cascade"],
              launches_bench=launches_bench["cascade"], launches_stage_bench=launches_stage["cascade"],
@@ -2272,7 +2831,8 @@ def main() -> int:
              warmup_launches=warmup["cascade"], replay_in_trace=fg["replay_in_trace"]["k2"],
              launches_multicam=mc["launches"]["cascade"], multicam_frame_rounds=mc["rounds"],
              launches_multicam_serial=mc["launches_serial"]["cascade"], camera_axis=k2cam,
-             multicam_replay=mc_ab["replay"], **k2),
+             multicam_replay=mc_ab["replay"], launches_framedp=fp["launches"]["cascade"],
+             launches_serving_verify=serve["verify"]["launches"]["K2"], **k2),
         dict(name="cascade_match_batched", route="cuda", source="vehicle_counting_tpu_torch/csrc/cascade.cu",
              replaces="vehicle_counting_tpu/ops/pallas/cascade.py:379", launches=sc["launches_k2_route"]["cascade_k3"],
              path="class_mode scan (the graph phase's frames)", launches_per_frame=sc["launches_k2_route"]["cascade_k3"]
@@ -2313,6 +2873,12 @@ def main() -> int:
     print(f"multi-camera f32 parity: {json.dumps(mc_parity)} [{card}]")
     print(f"multi-camera CLI camera-frames/s {json.dumps(mc['fps'])}, wall s {json.dumps(mc['wall_s'])}, launches "
           f"{json.dumps(mc['launches'])}, CSV vs serial {json.dumps(mc['csv_vs_serial'], default=str)} [{card}]")
+    print(f"framedp on one card, f32 B={fp['b']}: serial / two shards ms per batch {json.dumps(fp['ms_per_batch'])}, "
+          f"K1 per shard {fp['k1_per_shard']}, K2 {fp['launches']['cascade']} [{card}]")
+    print(f"--frame_parallel CLI: {json.dumps(fp_cli)} [{card}]")
+    print(f"serving: verify {json.dumps(serve['verify'])}; smoke {json.dumps(serve['smoke'])}; detect-only smoke "
+          f"{json.dumps(serve['smoke_detect_only'])}; export {serve['export_s']:.2f} s [{card}]")
+    print(f"multi-host on the card: {json.dumps(mh)} [{card}]")
     print(f"launch cost, us: {json.dumps(k7['probe'])} [{card}]")
     print(f"stage_bench ms/frame (min, median): {json.dumps(stages)} [{card}]")
     print(f"bench: {json.dumps(metric)}; streamed p50 {telemetry['p50_fps']} min {telemetry['min_fps']} best "

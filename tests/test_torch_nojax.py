@@ -60,6 +60,11 @@ PORT_MODULES = [
     "vehicle_counting_tpu_torch.parallel",
     "vehicle_counting_tpu_torch.parallel.cameras",
     "vehicle_counting_tpu_torch.pipeline.multicam",
+    "vehicle_counting_tpu_torch.parallel.mesh",
+    "vehicle_counting_tpu_torch.parallel.frames",
+    "vehicle_counting_tpu_torch.serving",
+    "vehicle_counting_tpu_torch.serving.artifact",
+    "vehicle_counting_tpu_torch.serving.cli",
 ]
 
 
@@ -135,9 +140,9 @@ def _tiny_videos(tmp_path, n_videos):
 
 
 def _tiny_run(run, tmp_path, flag):
-    """`--detect_only` on one 3-frame 64x48 video, or `--multicam` on two,
-    random-init yolov5n at 64x64 on the CPU: it runs and writes the
-    detections CSV's header, or each camera's counting CSV."""
+    """`--detect_only` or `--frame_parallel` on one 3-frame 64x48 video, or
+    `--multicam` on two, random-init yolov5n at 64x64 on the CPU: it runs
+    and writes the detections CSV's header, or the counting CSV's."""
     from vehicle_counting_tpu_torch.configs import config_from_dict, default_cam_config, default_config
 
     vids, zones = _tiny_videos(tmp_path, 2 if flag == "--multicam" else 1)
@@ -157,6 +162,11 @@ def _tiny_run(run, tmp_path, flag):
                 assert f.readline().strip().startswith("track_id,frame_id,box")
         return
     (res,) = results
+    if flag == "--frame_parallel":
+        assert res["frames"] == 3 and config.frame_parallel
+        with open(res["csv"]) as f:
+            assert f.readline().strip().startswith("track_id,frame_id,box")
+        return
     assert res["frames"] == 3 and os.path.basename(res["csv"]) == "tiny0_detections.csv"
     with open(res["csv"]) as f:
         assert f.readline().strip() == "frame_id,x1,y1,x2,y2,score,label"
@@ -164,13 +174,8 @@ def _tiny_run(run, tmp_path, flag):
 
 @pytest.mark.parametrize("flag", ["--multicam", "--frame_parallel", "--detect_only"])
 def test_cli_unported_flags_raise(flag, tmp_path):
-    """The flag whose path is not ported (--frame_parallel) raises;
-    --detect_only and --multicam, which are, run."""
+    """Every flag of the JAX CLI is ported now: each of them runs (none
+    raises "not yet ported")."""
     from vehicle_counting_tpu_torch import run
 
-    if flag != "--frame_parallel":
-        _tiny_run(run, tmp_path, flag)
-        return
-    args = run.parser.parse_args(["--input_path", "v.mp4", "--output_path", str(tmp_path), flag])
-    with pytest.raises(SystemExit, match="not yet ported"):
-        run.main(args, None, None)
+    _tiny_run(run, tmp_path, flag)

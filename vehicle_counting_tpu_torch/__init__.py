@@ -2,9 +2,9 @@
 
 The JAX package `vehicle_counting_tpu` is the reference this port is held
 against. Modules mirror its paths (`ops/letterbox.py`, `models/yolo.py`,
-`tracking/tracker.py`, ...). The port imports `torch` and never `jax`;
-JAX-free host modules of the reference (configs, counting, video I/O,
-colors) are imported rather than copied.
+`tracking/tracker.py`, ...). The port imports `torch` and never `jax`,
+and nothing of the JAX package: it keeps its own copies of the host
+modules it needs (configs, counting, video I/O, colors).
 
 Hand-written CUDA kernels live in `csrc/` and are built with `nvcc` at
 first use (`_build.py`); every kernel wrapper runs its plain PyTorch

@@ -5,7 +5,9 @@ at its first use into `build/kernels/` at the repository root (a
 directory `.gitignore` lists), keyed by a hash of the source, the headers
 it includes from `csrc/` and the flags, so an edited source or header is
 rebuilt and an unchanged one is loaded as built. `load_all` starts one
-`nvcc` per source at once.
+`nvcc` per source at once. `load_prebuilt` registers a library built
+elsewhere (a serving artifact's copy) after checking that its key is the
+one this checkout's source gives; it needs no `nvcc`.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without `nvcc`.
 """
@@ -32,6 +34,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_PATHS: Dict[str, str] = {}  # the file each loaded library came from
 BUILD_LOGS: Dict[str, str] = {}  # ptxas register/shared-memory report per kernel
 _LOCK = threading.Lock()
 
@@ -114,8 +117,43 @@ def load(name: str) -> ctypes.CDLL:
         job = _start(name)
         if job is not None:
             _finish(name, job)
-        lib = ctypes.CDLL(_target(name)[1])
-        _LIBS[name] = lib
+        path = _target(name)[1]
+        lib = ctypes.CDLL(path)
+        _LIBS[name], _PATHS[name] = lib, path
+        return lib
+
+
+def cache_key(name: str) -> str:
+    """The key of `csrc/<name>.cu`'s library in this checkout: a hash of the
+    source, the headers it includes and the flags (part of its file name)."""
+    return os.path.basename(_target(name)[1])[len(f"lib{name}_"):-len(".so")]
+
+
+def library_path(name: str) -> str:
+    """The file `name`'s library was loaded from, or where `load` builds it."""
+    return _PATHS.get(name) or _target(name)[1]
+
+
+def check_prebuilt(name: str, path: str) -> None:
+    """Raise unless `path` is named as this checkout builds `csrc/<name>.cu`:
+    `lib<name>_<cache_key>.so`, so the same source, headers and flags."""
+    want = os.path.basename(_target(name)[1])
+    if os.path.basename(path) != want:
+        raise ValueError(f"{path}: not the {name} kernel library of this source (its key gives {want})")
+
+
+def load_prebuilt(name: str, path: str) -> ctypes.CDLL:
+    """Register the library at `path` as `csrc/<name>.cu`'s, after
+    `check_prebuilt`, without nvcc. A library of that name that is loaded
+    already has the same key, so it stays; `library_path` says which file
+    runs."""
+    check_prebuilt(name, path)
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = os.path.abspath(path)
+            lib = ctypes.CDLL(path)
+            _LIBS[name], _PATHS[name] = lib, path
         return lib
 
 

@@ -2,8 +2,8 @@
 
 Port of `vehicle_counting_tpu/parallel/cameras.py`. The JAX package shards
 cameras over a mesh axis and scans the local cameras through its batch
-step; on one card there is no mesh (the frame-parallel step and
-`parallel/mesh.py` are not ported yet), and the cameras share the card:
+step; here the cameras share one card and the step takes no mesh (across
+processes each one runs its own cameras: `parallel/mesh.py`):
 
   * the front runs per camera at the serial shapes: `detect_embed_core` on
     each camera's [B] frames, exactly as `CountingPipeline.run_video` does,

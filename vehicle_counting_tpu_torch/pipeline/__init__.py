@@ -7,7 +7,11 @@ nothing: the raw frames) and upload one batch ahead in a worker thread,
 run the fused detect+track step (`pipeline/step.py`) on the device, read
 back the small [B, C, K] track outputs one batch behind, then zone
 filtering, direction assignment, CSV and the annotated MP4 on the host
-(this package's `counting/` and `data/` modules).
+(this package's `counting/` and `data/` modules). With `frame_parallel`
+in the config and more than one device in the mesh, each batch's frames
+are split over the devices for detection and embedding
+(`parallel/frames.py`); on one device that is a no-op, as in the JAX
+package.
 
 Artifacts: {output}/{cam}.csv with the reference's 10-column schema and
 {output}/{cam}.mp4; zone annotation at {zone_path}/{cam}.json. The
@@ -18,6 +22,7 @@ detect-only pass writes {output}/{cam}_detections.csv instead
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Dict, List, Optional
@@ -77,10 +82,18 @@ def check_step_finite(det, states, frame_id) -> None:
             raise FloatingPointError(f"non-finite tracker {name} after the batch at frame {frame_id}")
 
 
-class CountingPipeline:
-    """Mirror of the reference CountingPipeline surface, on one torch device."""
+def upload_shards(host: np.ndarray, mesh) -> tuple:
+    """A host batch split into the mesh's equal shards along axis 0, each
+    uploaded straight to its own device (no device holds the whole batch)."""
+    n = len(host) // mesh.size
+    return tuple(parallel_device_put(host[i * n:(i + 1) * n], device=d) for i, d in enumerate(mesh.devices))
 
-    def __init__(self, args, config: Optional[Config] = None, cam_config: Optional[Config] = None):
+
+class CountingPipeline:
+    """Mirror of the reference CountingPipeline surface, on one torch device
+    (or, with `frame_parallel`, the front on every device of `mesh`)."""
+
+    def __init__(self, args, config: Optional[Config] = None, cam_config: Optional[Config] = None, mesh=None):
         from vehicle_counting_tpu_torch.models.reid import cast_conv_weights, init_reid, load_reid_weights
         from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params, init_yolov5
 
@@ -152,6 +165,7 @@ class CountingPipeline:
         self.check_numerics = bool(getattr(args, "check_numerics", False))
         self.last_timer = None
         self.frames_done = 0  # valid frames drained so far in the current video
+        self.mesh = mesh  # frame_parallel's devices (parallel/mesh.py); None: every device of this one's type
 
     @staticmethod
     def get_cam_name(path: str) -> str:
@@ -192,6 +206,22 @@ class CountingPipeline:
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         return parallel_device_put(host, device=self.device)
 
+    def _frame_parallel_mesh(self):
+        """The mesh `frame_parallel` splits a batch over, or None where it
+        is a no-op: not asked for, one device, or a batch the device count
+        does not divide (said so, as the JAX package does)."""
+        if not self.config.frame_parallel:
+            return None
+        from vehicle_counting_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = self.mesh or make_mesh(None, ("frame",), self.device.type)
+        if mesh.size > 1 and self.batch_size % mesh.size == 0:
+            return mesh
+        if mesh.size > 1:
+            print(f"[pipeline] frame_parallel skipped: detect_batch {self.batch_size} not divisible by "
+                  f"{mesh.size} devices")
+        return None
+
     def run_video(self, video_path: str, visualize: bool = True) -> Dict:
         """Process one video; returns {'csv', 'counts', 'fps', 'frames'}."""
         from vehicle_counting_tpu_torch.ops.letterbox import content_upload_exact, host_letterbox_yuv420
@@ -207,7 +237,6 @@ class CountingPipeline:
         info = reader.video_info
         src_hw = (info["height"], info["width"])
         hp = self._cam_params(cam_name)
-        states = init_states(hp, self.device)
         counter = VehicleCounter(self.class_names, os.path.join(self.zone_path, cam_name + ".json"))
 
         timer = StageTimer()
@@ -220,6 +249,19 @@ class CountingPipeline:
         # ship only the letterbox content rows when that is bit-exact
         content_only = content_upload_exact(src_hw, net_hw)
         frames_format = "letterboxed_yuv420" if thin else "raw_rgb"
+        kw = dict(ycfg=self.ycfg, hp=hp, image_size=net_hw, src_hw=src_hw, conf_thres=self.conf_thres,
+                  iou_thres=self.iou_thres, max_det=self.max_det, dtype=self.dtype, frames_format=frames_format)
+        # frame-parallel: the front split by frame over the mesh, the
+        # tracker (its state, its frame runner) on the mesh's first device
+        mesh = self._frame_parallel_mesh()
+        if mesh is not None:
+            from vehicle_counting_tpu_torch.parallel.frames import make_framedp_step
+
+            fp_step = make_framedp_step(mesh, **kw)
+            track_dev = mesh.devices[0]
+        else:
+            fp_step, track_dev = None, self.device
+        states = init_states(hp, track_dev)
         it = reader.batches()
 
         def fetch():
@@ -232,8 +274,10 @@ class CountingPipeline:
                 with timer.stage("letterbox"):
                     frames = host_letterbox_yuv420(frames, net_hw, content_only=content_only)
             with timer.stage("upload"):
-                fdev = self._upload(frames)
-                vdev = self._upload(valid)
+                if mesh is not None:
+                    fdev, vdev = upload_shards(frames, mesh), upload_shards(valid, mesh)
+                else:
+                    fdev, vdev = self._upload(frames), self._upload(valid)
             return fdev, vdev, frame_ids, valid
 
         def drain(pending):
@@ -252,24 +296,23 @@ class CountingPipeline:
                 rows["labels"].extend(c.tolist())
                 rows["boxes"].extend(boxes[b, c, k])
 
-        if step_mod.use_frame_graph(self.device):
+        if step_mod.use_frame_graph(track_dev):
             # capture the tracker's frame step now: before the upload worker
             # starts and outside a --profile trace
-            step_mod.frame_runner(hp, src_hw, self.device)
+            step_mod.frame_runner(hp, src_hw, track_dev)
         profile_ctx = trace(self.profile_dir) if self.profile_dir else contextlib.nullcontext({})
         pending = None
         try:
             with profile_ctx as traced:
                 for fdev, vdev, frame_ids, valid in prefetch(fetch, prep):
                     with timer.stage("dispatch"):
-                        states, det, touts = step_mod.pipeline_batch_step(
-                            self.yolo_params, self.reid_params, self.reid_stats, states,
-                            fdev, vdev, self.class_lut,
-                            ycfg=self.ycfg, hp=hp, image_size=net_hw, src_hw=src_hw,
-                            conf_thres=self.conf_thres, iou_thres=self.iou_thres,
-                            max_det=self.max_det, dtype=self.dtype,
-                            frames_format=frames_format,
-                        )
+                        if fp_step is not None:
+                            states, det, touts = fp_step(self.yolo_params, self.reid_params, self.reid_stats,
+                                                         self.class_lut, states, fdev, vdev)
+                        else:
+                            states, det, touts = step_mod.pipeline_batch_step(
+                                self.yolo_params, self.reid_params, self.reid_stats, states,
+                                fdev, vdev, self.class_lut, **kw)
                     if self.check_numerics:
                         check_step_finite(det, states, frame_ids[0])
                     if pending is not None:
@@ -279,7 +322,7 @@ class CountingPipeline:
                     drain(pending)
         finally:
             # this camera's captured step, its static state and its pool
-            step_mod.free_frame_runner(hp, src_hw, self.device)
+            step_mod.free_frame_runner(hp, src_hw, track_dev)
         if self.profile_dir:
             self.last_trace = traced["path"]
             print(f"[profile] torch.profiler trace written to {self.last_trace}")
@@ -317,7 +360,9 @@ class CountingPipeline:
         in order and each frame's detections in score order. Same overlap
         as `run_video` (the worker letterboxes + uploads one batch ahead,
         the readback lags one batch) on the same thin-upload I420 pixel
-        path. Returns {'csv', 'frames', 'fps'}."""
+        path. With `frame_parallel`, each device of the mesh detects its
+        shard of the batch with its own copy of the weights, and the
+        shards are joined in frame order. Returns {'csv', 'frames', 'fps'}."""
         import pandas as pd
 
         from vehicle_counting_tpu_torch.ops.letterbox import content_upload_exact, host_letterbox_yuv420
@@ -336,10 +381,19 @@ class CountingPipeline:
         self.frames_done = 0
         t0 = time.perf_counter()
         it = reader.batches()
+        detect = functools.partial(
+            detect_only_step, ycfg=self.ycfg, image_size=net_hw, src_hw=src_hw, conf_thres=self.conf_thres,
+            iou_thres=self.iou_thres, max_det=self.max_det, dtype=self.dtype)
+        mesh = self._frame_parallel_mesh()
+        if mesh is not None:
+            from vehicle_counting_tpu_torch.parallel.mesh import tree_to
+
+            weights = {d: tree_to(self.yolo_params, d) for d in mesh.devices}
 
         def prep(batch):
             frames, frame_ids, valid = batch
-            return self._upload(host_letterbox_yuv420(frames, net_hw, content_only=content_only)), frame_ids, valid
+            yuv = host_letterbox_yuv420(frames, net_hw, content_only=content_only)
+            return (upload_shards(yuv, mesh) if mesh is not None else self._upload(yuv)), frame_ids, valid
 
         def drain(pending_):
             nonlocal num_frames
@@ -364,10 +418,11 @@ class CountingPipeline:
         pending = None
         with torch.no_grad():
             for ydev, frame_ids, valid in prefetch(lambda: next(it, None), prep):
-                out = detect_only_step(
-                    self.yolo_params, ydev, ycfg=self.ycfg, image_size=net_hw, src_hw=src_hw,
-                    conf_thres=self.conf_thres, iou_thres=self.iou_thres, max_det=self.max_det, dtype=self.dtype,
-                )
+                if mesh is not None:
+                    shards = [detect(weights[d], y) for d, y in zip(mesh.devices, ydev)]
+                    out = {k: torch.cat([o[k].to(mesh.devices[0]) for o in shards]) for k in shards[0]}
+                else:
+                    out = detect(self.yolo_params, ydev)
                 if pending is not None:
                     drain(pending)
                 pending = (out, frame_ids, valid)

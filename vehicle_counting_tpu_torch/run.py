@@ -2,7 +2,7 @@
 
     python -m vehicle_counting_tpu_torch.run --input_path <video-or-dir> \
         --output_path <dir> [--mapping coco|'{"2": 1, ...}'] [--debug] [--no_visualize] \
-        [--detect_only | --multicam] [--device cuda|cpu] [--profile [DIR]] [--check_numerics]
+        [--detect_only | --multicam] [--frame_parallel] [--device cuda|cpu] [--profile [DIR]] [--check_numerics]
 
 --detect_only writes {cam}_detections.csv per video (no tracking; score it
 with `python -m vehicle_counting_tpu_torch.evaluation`). --weight takes an
@@ -11,8 +11,8 @@ checkpoint is `checkpoint:` in cam_configs.yaml. Without them the detector
 and ReID weights are random-init from fixed seeds: nothing is downloaded.
 --multicam counts every video concurrently on the one card
 (pipeline/multicam.py) instead of the reference's strictly serial loop.
---frame_parallel, whose path the port does not have yet, raises instead of
-being ignored.
+--frame_parallel splits each batch's frames over every card for detection
+and embedding (parallel/frames.py); on one card it changes nothing.
 """
 
 from __future__ import annotations
@@ -47,10 +47,13 @@ parser.add_argument("--multicam", action="store_true",
                          "steps B frames of every camera, one tracker frame step for all cameras' classes. "
                          "Videos are grouped by (frame geometry, per-camera tracking_config), so every camera "
                          "keeps its own cam_configs.yaml DeepSORT params. Incompatible with --detect_only.")
-# a path of the reference package that is not ported yet: it raises
-parser.add_argument("--frame_parallel", action="store_true", help="not yet ported")
-
-_NOT_PORTED = ("frame_parallel",)
+parser.add_argument("--frame_parallel", action="store_true",
+                    help="split each batch's frames over every card for detection and ReID embedding "
+                         "(parallel/frames.py); the tracker runs once, on the first card, on the joined results. "
+                         "Single-camera scale-out; needs detect_batch %% card count == 0; no-op on one card. In the "
+                         "default bfloat16 config a detection within ~1e-3 of the confidence / NMS thresholds may "
+                         "flip against the serial run (batch-extent rounding); float32 compute_dtype keeps every "
+                         "discrete output equal.")
 
 
 def _mapping_dict(mapping):
@@ -72,9 +75,19 @@ def main(args, config, cam_config):
             "drives the full detect+track step). For multi-device detection "
             "use --frame_parallel instead."
         )
-    for flag in _NOT_PORTED:
-        if getattr(args, flag, None):
-            raise SystemExit(f"--{flag} is not yet ported to vehicle_counting_tpu_torch")
+    if getattr(args, "frame_parallel", False):
+        if getattr(args, "multicam", False):
+            print("[run] note: --frame_parallel is ignored in --multicam mode "
+                  "(the cameras already share the step)")
+        else:
+            import torch
+
+            config.frame_parallel = True
+            n_dev = torch.cuda.device_count()
+            batch = int(config.detect_batch or 8)
+            if n_dev > 1 and batch % n_dev:
+                raise SystemExit(f"--frame_parallel requires detect_batch ({batch}) divisible by the device "
+                                 f"count ({n_dev}); set detect_batch in configs.yaml accordingly.")
     args.mapping_dict = _mapping_dict(args.mapping)
     print(config)
     if getattr(args, "multicam", False):
