@@ -113,7 +113,21 @@ Phases, each fatal on failure:
   profile   the CLI with --profile on 128 frames, then profile_summary on
             the trace it wrote;
   weights   the CLI with --weight and a ReID checkpoint, both made from
-            seeds (an ultralytics-named .pt state dict and a .t7).
+            seeds (an ultralytics-named .pt state dict and a .t7);
+  reid-train  5 ReID train steps (B=16, 8 classes) on the card against
+            the CPU with the same init, batches and dropout draws: f32 (TF32
+            off) to a stated tolerance, f64 to 1e-8 of each gradient's
+            size; then the recipe's shapes (B=64, 751 classes, augmentation
+            on the card): train_step ms and images/s, extract_features at
+            B=512 with cuDNN and through K5's f32 parity mode (2 launches
+            per call, against cuDNN's);
+  reid_cli  2 epochs on a synthetic ImageFolder (rc 0, new_ckpt.npz,
+            train.jpg, the history), then --resume from the saved epoch;
+            whether matplotlib imports;
+  tools     e2e_smoke on 48 frames of 720p, the soak at 1024 frames (fps
+            first / last sample, RSS growth, peak device memory), the
+            egress_day dry run on seeded fake checkpoints, and
+            graft_entry.entry() once.
 Each kernel's bound (the least time the card could take: bytes over
 3.35 TB/s or operations over the peak rate of their type, whichever is
 larger) is computed from the checked call's inputs.
@@ -2368,6 +2382,353 @@ def run_weights(dev, tmp, path, zones):
     return {"fps": fps, "rows": len(df), "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# ReID training (train/), the tools, the soak, the graft entry
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_NC, TRAIN_STEPS, TRAIN_LR = 16, 8, 5, 0.005  # the parity run (tests/test_torch_train.py's shapes)
+# f32 card == CPU after 5 steps, each leaf's error as a fraction of its
+# gradient's size (params: of lr x the trace's largest value, one step's
+# move). The step is chaotic in f32: on the host, oneDNN's f32 against the
+# native f32 convolutions part by 0.65 / 2.1e-3 / 0.31 (param / stats /
+# trace) after these 5 steps, f32 against f64 by 0.64 / 1.9e-3 / 0.18,
+# the losses by 1.4 %. So these bounds are f32's spread; the f64 run holds
+# the semantics.
+TRAIN_F32_TOL, TRAIN_LOSS_RTOL = {"param": 2.0, "stats": 1e-2, "trace": 0.75}, 0.05
+TRAIN_F64_TOL = 1e-8  # f64 card == CPU, every kind
+
+
+def train_steps(device, dtype, steps=TRAIN_STEPS, b=TRAIN_B, nc=TRAIN_NC, lr=TRAIN_LR):
+    """`steps` ReID train steps on `device` in `dtype` from one seeded init
+    (drawn on the host) on one seeded batch, with dropout masks drawn on
+    the host (the same on every device). Returns the per-step losses and
+    accuracies and the final state as the checkpoint's leaves (params,
+    stats, trace, count), with the param and stat counts."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models import reid as reid_mod
+    from vehicle_counting_tpu_torch.train import reid_train as rt
+
+    rng = np.random.default_rng(SEED + 40)
+    images = rng.normal(size=(b, 50, 50, 3)).astype(np.float32)
+    labels = rng.integers(0, nc, b).astype(np.int32)
+    masks = torch.Generator().manual_seed(SEED + 41)
+    cfg = rt.ReidTrainConfig(num_classes=nc, batch_size=b, lr=lr)
+    params, stats, opt, ost = rt.create_train_state(torch.Generator().manual_seed(SEED), cfg, 10, device)
+    if dtype != torch.float32:
+        params, stats, ost = rt.cast_train_state(params, stats, opt, dtype)
+    keep = reid_mod.dropout_keep
+    reid_mod.dropout_keep = lambda gen, shape, dev: keep(masks, shape, "cpu").to(dev)
+    try:
+        losses, accs = [], []
+        for _ in range(steps):
+            params, stats, ost, m = rt.train_step(params, stats, ost, images, labels, masks, opt=opt)
+            losses.append(float(m["loss"]))
+            accs.append(float(m["acc"]))
+    finally:
+        reid_mod.dropout_keep = keep
+    return losses, accs, rt.checkpoint_leaves(params, stats, ost), len(rt._flatten(params)), len(rt._flatten(stats))
+
+
+def _leaf_names(nc=TRAIN_NC):
+    """The checkpoint's leaf names, in its order: params, stats, trace, count."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.reid import init_reid
+    from vehicle_counting_tpu_torch.tools.convert_weights import _paths
+
+    params, stats = init_reid(torch.Generator().manual_seed(0), num_classes=nc)
+    p = [k for k, _ in _paths(params)]
+    return p + [f"stats/{k}" for k, _ in _paths(stats)] + [f"trace/{k}" for k in p] + ["count"]
+
+
+def _state_errors(got, want, n_p, n_s, lr):
+    """Per leaf kind, the worst |got - want| as a fraction of the leaf's
+    gradient's largest value (a param moves by lr x its trace; the stats
+    by their own largest value), and the leaf it was at."""
+    worst = {}
+    for i, (g, w) in enumerate(zip(got[:-1], want[:-1])):
+        if i < n_p:
+            kind, scale = "param", lr * max(float(np.abs(want[n_p + n_s + i]).max()), 1e-3)
+        elif i < n_p + n_s:
+            kind, scale = "stats", max(float(np.abs(w).max()), 1e-3)
+        else:
+            kind, scale = "trace", max(float(np.abs(w).max()), 1e-3)
+        err = float(np.abs(g.astype(np.float64) - w).max()) / scale
+        if err >= worst.get(kind, (-1.0, 0))[0]:
+            worst[kind] = (err, i)
+    return worst
+
+
+def check_reid_train_parity(dev):
+    """5 ReID train steps (B=16, 8 classes, one batch) on the card against
+    the same steps on the CPU, the same init, batch and dropout draws: in
+    f32 (TF32 off) each leaf within TRAIN_F32_TOL of its gradient's size,
+    the losses within TRAIN_LOSS_RTOL, the accuracies within one sample; in
+    f64 every leaf within TRAIN_F64_TOL and the accuracies equal. Prints
+    the worst leaf of each kind."""
+    import torch
+
+    names = _leaf_names()
+    out = {}
+    f64_tol = {k: TRAIN_F64_TOL for k in TRAIN_F32_TOL}
+    for name, dtype, tol in (("f32", torch.float32, TRAIN_F32_TOL), ("f64", torch.float64, f64_tol)):
+        t0 = time.perf_counter()
+        lc, ac, card, n_p, n_s = train_steps(dev, dtype)
+        t_card = time.perf_counter() - t0
+        lh, ah, host, _, _ = train_steps(torch.device("cpu"), dtype)
+        worst = {k: (e, names[i]) for k, (e, i) in _state_errors(card, host, n_p, n_s, TRAIN_LR).items()}
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        print(f"reid-train parity {name}: losses card {[round(x, 6) for x in lc]} host {[round(x, 6) for x in lh]} "
+              f"(worst rel {loss_err:.3e}); acc card {ac} host {ah}; worst leaf per kind (error / gradient "
+              f"scale, leaf index): {json.dumps(worst)}; card {t_card:.2f} s for {TRAIN_STEPS} steps incl. init")
+        if card[-1] != host[-1] or card[-1] != TRAIN_STEPS:
+            raise AssertionError(f"reid-train {name}: step counts {card[-1]} / {host[-1]}")
+        if name == "f32":
+            if loss_err > TRAIN_LOSS_RTOL or ac[0] != ah[0] or max(abs(a - b) for a, b in zip(ac, ah)) > 1.0 / TRAIN_B:
+                raise AssertionError(f"reid-train f32: card losses / accuracies differ from the host's past the bounds")
+        elif loss_err > TRAIN_F64_TOL or ac != ah:
+            raise AssertionError(f"reid-train f64: card losses {lc} / accuracies {ac} != the host's {lh} / {ah}")
+        bad = {k: v for k, v in worst.items() if v[0] > tol[k]}
+        if bad:
+            raise AssertionError(f"reid-train {name}: card leaves differ from the host's past {tol}: {bad}")
+        out[name] = {"loss_card": lc, "loss_host": lh, "loss_worst_rel": loss_err, "worst": worst, "tol": tol}
+    return out
+
+
+def reid_train_throughput(dev, b=64, nc=751, steps=60, warm=5, b_feat=512):
+    """The reference recipe's shapes: B=64 50x50 crops, 751 classes, SGD
+    0.1 / 0.9 / 5e-4, augmentation (flip + rotation) on the card each step:
+    train_step ms and images/s over `steps` steady steps (CUDA events), one
+    step's device kernels and busy time from the card's trace, then
+    `extract_features` at B=512, cuDNN and with the fused stage-1 block
+    switched on (K5's f32 parity mode, FORCE_PALLAS_REID_BLOCK=1): that
+    one held against the cuDNN one, with 2 K5 launches per call."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models import reid as reid_mod
+    from vehicle_counting_tpu_torch.ops import reid_block
+    from vehicle_counting_tpu_torch.train import reid_train as rt
+    from vehicle_counting_tpu_torch.train.augment import augment_batch
+
+    cfg = rt.ReidTrainConfig(num_classes=nc, batch_size=b)
+    params, stats, opt, ost = rt.create_train_state(torch.Generator().manual_seed(SEED), cfg, 100, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    data = torch.randn((4, b, 50, 50, 3), generator=gen, device=dev)
+    labels = torch.randint(0, nc, (4, b), generator=gen, device=dev, dtype=torch.int32)
+    state = {"stats": stats}
+
+    def step(i):
+        im = augment_batch(gen, data[i % 4])
+        _, state["stats"], _, m = rt.train_step(params, state["stats"], ost, im, labels[i % 4], gen, opt=opt)
+        return m
+
+    for i in range(warm):
+        step(i)
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        m = step(i)
+    end.record()
+    torch.cuda.synchronize(dev)
+    ms = start.elapsed_time(end) / steps
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"reid-train throughput: loss {loss}")
+    events = device_events(lambda: step(0))  # one step's device kernels and copies, from the card's trace
+    busy = sum(d for _, d in events)
+    top = collections.Counter()
+    for name, d in events:
+        top[name[:50]] += d
+    feats_in = torch.randn((b_feat, 50, 50, 3), generator=gen, device=dev)
+    stats = state["stats"]
+    feat_ms = cuda_ms(lambda: rt.extract_features(params, stats, feats_in), 10)
+    plain = rt.extract_features(params, stats, feats_in)
+    prev = reid_mod.FORCE_REID_BLOCK_KERNEL
+    reid_mod.FORCE_REID_BLOCK_KERNEL = True
+    try:
+        reid_block.reid_block64.launches = 0
+        fused = rt.extract_features(params, stats, feats_in)
+        torch.cuda.synchronize(dev)
+        k5 = reid_block.reid_block64.launches
+        k5_ms = cuda_ms(lambda: rt.extract_features(params, stats, feats_in), 10)
+    finally:
+        reid_mod.FORCE_REID_BLOCK_KERNEL = prev
+    err = float((fused - plain).abs().max())
+    if k5 != 2:
+        raise AssertionError(f"extract_features with the fused block launched K5 {k5} times, want 2 (stage 1)")
+    if err > 1e-4:
+        raise AssertionError(f"extract_features through K5 (f32) differs from cuDNN's by {err}")
+    res = {"batch": b, "classes": nc, "train_step_ms": ms, "train_images_per_s": b * 1000.0 / ms,
+           "steps_timed": steps, "last_loss": loss, "device_events_per_step": len(events),
+           "device_busy_ms_per_step": busy, "device_busy_share": busy / ms,
+           "top_device_ms": [[k, round(v, 4)] for k, v in top.most_common(4)], "extract_b": b_feat, "extract_ms": feat_ms,
+           "extract_images_per_s": b_feat * 1000.0 / feat_ms, "extract_k5_ms": k5_ms,
+           "extract_k5_images_per_s": b_feat * 1000.0 / k5_ms, "k5_launches_per_call": k5,
+           "k5_vs_cudnn_max_abs": err}
+    print(f"reid-train throughput: {json.dumps(res)}")
+    return res
+
+
+def write_image_folder(root, classes=8, train=24, test=8, seed=SEED + 50):
+    """A class-per-directory image set ({root}/train, {root}/test), 64x32
+    crops written with cv2: each class a colour with noise."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for c in range(classes):
+        colour = rng.integers(0, 256, 3)
+        for split, n in (("train", train), ("test", test)):
+            d = os.path.join(root, split, f"{c:04d}")
+            os.makedirs(d, exist_ok=True)
+            for i in range(n):
+                img = np.clip(colour + rng.normal(0, 40, (64, 32, 3)), 0, 255).astype(np.uint8)
+                cv2.imwrite(os.path.join(d, f"{i}.jpg"), img)
+    return root
+
+
+def _module(name, *argv, timeout=900):
+    """`python -m name argv...` from this checkout; (rc, stdout + stderr)."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", name, *argv], cwd=here, env=dict(os.environ, PYTHONPATH=here),
+                          capture_output=True, text=True, timeout=timeout)
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def run_reid_cli(tmp):
+    """`reid_cli` on the card over a synthetic ImageFolder (8 classes, 24
+    train / 8 test images each): 2 epochs (rc 0, new_ckpt.npz, train.jpg,
+    the history printed), then --resume for one more epoch, which must
+    start from the saved epoch."""
+    import importlib.util
+
+    data = write_image_folder(os.path.join(tmp, "reid_data"))
+    ck = os.path.join(tmp, "reid_ckpt")
+    t0 = time.perf_counter()
+    rc, out = _module("vehicle_counting_tpu_torch.train.reid_cli", "--data_dir", data, "--epochs", "2", "--batch",
+                      "32", "--checkpoint_dir", ck)
+    wall = time.perf_counter() - t0
+    print(out[-1500:])
+    hist = [ln for ln in out.splitlines() if ln.startswith("best val acc")]
+    if rc != 0 or not hist:
+        raise AssertionError(f"reid_cli exited {rc}:\n{out[-3000:]}")
+    ckpt = os.path.join(ck, "new_ckpt.npz")
+    if not (os.path.exists(ckpt) and os.path.getsize(os.path.join(ck, "train.jpg")) > 1000):
+        raise AssertionError("reid_cli wrote no new_ckpt.npz / train.jpg")
+    saved_epoch = int(np.load(ckpt)["__meta__"][0])
+    rc2, out2 = _module("vehicle_counting_tpu_torch.train.reid_cli", "--data_dir", data, "--epochs",
+                        str(saved_epoch + 1), "--batch", "32", "--checkpoint_dir", ck, "--resume", ckpt)
+    print(out2[-1500:])
+    resumed = [ln for ln in out2.splitlines() if ln.startswith("[fit] resumed from")]
+    if rc2 != 0 or not resumed or f"at epoch {saved_epoch} " not in resumed[0]:
+        raise AssertionError(f"reid_cli --resume (saved epoch {saved_epoch}) exited {rc2}:\n{out2[-3000:]}")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    print(f"matplotlib imports: {has_mpl} (train.jpg drawn with {'matplotlib' if has_mpl else 'cv2'})")
+    return {"rc": rc, "wall_s": wall, "history": hist[0], "saved_epoch": saved_epoch, "resumed": resumed[0],
+            "matplotlib": has_mpl}
+
+
+def _egress_inputs(tmp, seed=SEED + 68):
+    """Seeded fake checkpoints (a yolov5n .pt with ultralytics' names, a
+    ReID .t7), a static 240x320 video of 16 frames, its zone, and the
+    small configs the egress dry run uses (tests/test_egress_day.py's).
+    The seed is one whose weights put detections of mapped (vehicle)
+    classes in the top 8, so the steps have rows to compare."""
+    import cv2
+    import torch
+    import yaml
+
+    from vehicle_counting_tpu_torch.testing import fake_reid_state_dict, fake_yolov5_state_dict
+
+    d = os.path.join(tmp, "egress")
+    os.makedirs(os.path.join(d, "zones"))
+    rng = np.random.default_rng(seed)
+    pt, t7 = os.path.join(d, "yolov5n.pt"), os.path.join(d, "ckpt.t7")
+    sd = fake_yolov5_state_dict(rng, "yolov5n", 80)
+    torch.save({"model": {k: torch.from_numpy(v).half() for k, v in sd.items()}, "epoch": -1}, pt)
+    torch.save({"net_dict": {k: torch.from_numpy(v) for k, v in fake_reid_state_dict(rng).items()}, "acc": 0.5,
+                "epoch": 3}, t7)
+    h, w = 240, 320
+    img = cv2.GaussianBlur(rng.integers(0, 255, (h, w, 3), dtype=np.uint8), (7, 7), 3)
+    video = os.path.join(d, "cam_rw.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (w, h))
+    for _ in range(16):
+        writer.write(img)
+    writer.release()
+    with open(os.path.join(d, "zones", "cam_rw.json"), "w") as f:
+        json.dump({"shapes": [{"label": "zone", "points": [[-5, -5], [w + 5, -5], [w + 5, h + 5], [-5, h + 5]]},
+                              {"label": "direction01", "points": [[0, h // 2], [w, h // 2]]}]}, f)
+    cfg, cam = os.path.join(d, "configs.yaml"), os.path.join(d, "cam_configs.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"settings": {"detect_batch": 8, "max_tracks_per_class": 16, "image_size": [192, 192],
+                                     "model_name": "yolov5n", "min_conf": 1e-4, "max_det": 8,
+                                     "compute_dtype": "float32"}}, f)
+    with open(cam, "w") as f:
+        yaml.safe_dump({"settings": {"zone_path": os.path.join(d, "zones"), "checkpoint": t7, "cam": {
+            "cam_rw": {"tracking_config": {"MIN_CONFIDENCE": 0.0, "N_INIT": 2, "MAX_AGE": 5}}}}}, f)
+    return d, pt, t7, video, cfg, cam
+
+
+def run_tools(dev, tmp):
+    """The tools on the card: e2e_smoke (the CLI in a subprocess, 48
+    frames of 720p: schema and MP4 frame count); the soak at 1024 frames
+    (fps first / last sample, RSS growth, peak device memory); the
+    egress_day dry run on seeded fake checkpoints (rc 0); graft_entry's
+    entry() once."""
+    import torch
+
+    from vehicle_counting_tpu_torch import graft_entry
+    from vehicle_counting_tpu_torch.benchmarks import soak
+    from vehicle_counting_tpu_torch.tools import e2e_smoke, egress_day
+
+    out = {}
+    t0 = time.perf_counter()
+    rc = e2e_smoke.main(["--out", os.path.join(tmp, "e2e"), "--frames", "48"])
+    out["e2e_smoke"] = {"rc": rc, "wall_s": time.perf_counter() - t0}
+    if rc != 0:
+        raise AssertionError("e2e_smoke failed")
+    t0 = time.perf_counter()
+    rc = soak.main(["--frames", "1024", "--out", os.path.join(tmp, "soak"), "--sample_s", "1"])
+    with open(os.path.join(tmp, "soak", "soak_report.json")) as f:
+        rep = json.load(f)
+    out["soak"] = {k: rep.get(k) for k in ("frames", "wall_s", "fps_overall", "fps_interval_first",
+                                           "fps_interval_last", "fps_interval_min", "fps_interval_max",
+                                           "rss_start_mb", "rss_end_mb", "rss_growth_mb", "device_peak_allocated_mb",
+                                           "device_peak_reserved_mb", "csv_rows", "checks")}
+    out["soak"]["script_s"] = time.perf_counter() - t0
+    if rc != 0 or not rep["ok"]:
+        raise AssertionError(f"soak failed: {out['soak']}")
+    d, pt, t7, video, cfg, cam = _egress_inputs(tmp)
+    args = egress_day.argparse.Namespace(yolo_pt=pt, reid_t7=t7, config=cfg, cam_config=cam, device="cuda")
+    pre = egress_day._make_pipeline(args, os.path.join(d, "pre"))
+    gt_csv = pre.run_video_detect_only(video)["csv"]
+    ref_csv = pre.run_video(video, visualize=False)["csv"]
+    import pandas as pd
+
+    rows = {"gt": len(pd.read_csv(gt_csv)), "ref": len(pd.read_csv(ref_csv))}
+    if not (rows["gt"] and rows["ref"]):
+        raise AssertionError(f"egress_day dry run: the fake weights gave no rows to compare {rows}")
+    rc = egress_day.main(["--yolo_pt", pt, "--reid_t7", t7, "--workdir", os.path.join(d, "work"), "--val_video",
+                          video, "--gt", gt_csv, "--map50_min", "0.5", "--parity_video", video, "--ref_csv",
+                          ref_csv, "--config", cfg, "--cam_config", cam])
+    out["egress_day"] = {"rc": rc, "rows": rows}
+    if rc != 0:
+        raise AssertionError("egress_day dry run failed")
+    fn, fargs = graft_entry.entry()
+    t0 = time.perf_counter()
+    det = fn(*fargs)
+    torch.cuda.synchronize(dev)
+    out["graft_entry"] = {"s": time.perf_counter() - t0, "shapes": {k: list(v.shape) for k, v in det.items()},
+                          "device": str(det["boxes"].device)}
+    if det["boxes"].shape != (1, 300, 4) or det["boxes"].device.type != "cuda":
+        raise AssertionError(f"graft_entry.entry(): {out['graft_entry']}")
+    print(f"tools: {json.dumps(out)}")
+    return out
+
+
 def checkout_smoke(ap, root):
     """The chip_smoke module of the checkout at `root` (a directory inside
     this one), with that checkout's package first on the import path; None
@@ -2645,6 +3006,60 @@ def fleet_worker(argv) -> int:
     return 0
 
 
+def multi_card_train(n, per_card=64, steps=20):
+    """The data-parallel ReID train_step over n cards against one card
+    (`graft_entry.dp_train_check`: f32 loss and first leaf at the JAX DP
+    test's tolerances, every leaf in f64 to 1e-9 of its gradient's size),
+    then images/s at B=64 per card: one card against n cards (the batch
+    split over them, the whole batch's BN statistics and loss)."""
+    import torch
+
+    from vehicle_counting_tpu_torch import graft_entry
+    from vehicle_counting_tpu_torch.parallel.mesh import make_mesh
+    from vehicle_counting_tpu_torch.train import reid_train as rt
+
+    mesh = make_mesh(n, ("data",))
+    out = {"f32": graft_entry.dp_train_check(mesh), "f64": graft_entry.dp_train_check(mesh, dtype=torch.float64)}
+    d0 = mesh.devices[0]
+    for name, m, b in (("one_card", None, per_card), (f"{n}_cards", mesh, per_card * n)):
+        cfg = rt.ReidTrainConfig(batch_size=b)
+        params, stats, opt, ost = rt.create_train_state(torch.Generator().manual_seed(SEED), cfg, 100, d0)
+        gen = torch.Generator(device=d0).manual_seed(SEED)
+        im = torch.randn((b, 50, 50, 3), generator=gen, device=d0)
+        lb = torch.randint(0, cfg.num_classes, (b,), generator=gen, device=d0)
+        holder = {"stats": stats}
+
+        def step():
+            _, holder["stats"], _, _ = rt.train_step(params, holder["stats"], ost, im, lb, gen, opt=opt, mesh=m)
+
+        step()
+        ms = host_ms(step, steps)
+        out[name] = {"batch": b, "ms_per_step": ms, "images_per_s": b * 1000.0 / ms}
+    print(f"multi-card train: {json.dumps(out, default=str)}")
+    return out
+
+
+def serial_cli_on_card1(tmp, path, zones, conf, mapping):
+    """The serial CLI with --device cuda:1 against --device cuda:0, f32
+    (compute_dtype float32; TF32 off), no MP4 pass: the CSVs equal row for
+    row (every column but the per-track colour), the same kernel launches."""
+    import torch
+
+    runs = {}
+    for i in (0, 1):
+        fps, launches, df = run_pipeline(torch.device("cuda", i), tmp, path, zones, conf, mapping,
+                                         out=f"f32_cuda{i}", extra_args=("--no_visualize",),
+                                         config_over={"compute_dtype": "float32"})
+        runs[i] = (fps, launches, df)
+    diff, first = _csv_diff(runs[0][2], runs[1][2])
+    res = {"rows": [len(runs[i][2]) for i in (0, 1)], "differing_rows": diff, "first": first,
+           "fps": [runs[i][0] for i in (0, 1)], "launches": [runs[i][1] for i in (0, 1)]}
+    print(f"serial CLI, cuda:1 against cuda:0 at f32: {json.dumps(res, default=str)}")
+    if diff or not len(runs[0][2]) or runs[0][1] != runs[1][1]:
+        raise AssertionError(f"--device cuda:1 differs from cuda:0: {res}")
+    return res
+
+
 def multi_card(argv) -> int:
     """`python3 chip_smoke.py --multi-card`: what exists only across cards,
     on every card of the machine (two or more; one JSON line at the end):
@@ -2654,7 +3069,10 @@ def multi_card(argv) -> int:
     step on one card against the frame-parallel step over every card, ms
     per batch in turns; (c) `run --frame_parallel` against the default run
     on the smoke video, in turns; (d) the camera fleet, one process per
-    card joined over NCCL (`run_fleet`)."""
+    card joined over NCCL (`run_fleet`); (e) the serial CLI with --device
+    cuda:1 against cuda:0 at f32, row for row; (f) the data-parallel ReID
+    train step over every card against one card, and images/s; (g)
+    `graft_entry.dryrun_multichip` over every card."""
     import torch
 
     n = torch.cuda.device_count()
@@ -2668,7 +3086,7 @@ def multi_card(argv) -> int:
     card = card_line()
     dev = torch.device("cuda", 0)
     print(f"[cards] {n} x {torch.cuda.get_device_name(0)}; {card}")
-    _build.load_all(("crops", "cascade"))
+    _build.load_all(("crops", "cascade", "reid_block"))
     mesh = make_mesh(None, ("frame",))
     with tempfile.TemporaryDirectory() as tmp:
         path, zones = write_video(tmp)
@@ -2680,10 +3098,19 @@ def multi_card(argv) -> int:
         ab = framedp_production_ab(dev, path, mesh, conf, mapping)
         phase("multi-card (c): the CLI with --frame_parallel against the default run", card)
         cli = framedp_cli_ab(dev, tmp, path, zones, conf, mapping)
+        phase("multi-card (e): the serial CLI with --device cuda:1 against cuda:0, f32", card)
+        card1 = serial_cli_on_card1(tmp, path, zones, conf, mapping)
     phase(f"multi-card (d): the camera fleet, {n} processes over NCCL", card)
     fl = run_fleet(n)
+    phase(f"multi-card (f): the data-parallel ReID train step over {n} cards against one", card)
+    tr = multi_card_train(n)
+    phase(f"multi-card (g): graft_entry.dryrun_multichip({n})", card)
+    from vehicle_counting_tpu_torch import graft_entry
+
+    dry = graft_entry.dryrun_multichip(n)
     print(json.dumps({"multi_card": {"cards": n, "card": card, "framedp": fp, "main_path_shapes": ab, "cli": cli,
-                                     "fleet": fl}}, default=str))
+                                     "fleet": fl, "serial_cli_cuda1": card1, "train": tr, "dryrun": dry}},
+                     default=str))
     return 0
 
 
@@ -2816,6 +3243,16 @@ def main() -> int:
     phase("bench", card)
     telemetry, metric, launches_bench = run_bench(dev)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("reid-train parity: 5 train steps on the card against the CPU, f32 and f64", card)
+        train_parity = check_reid_train_parity(dev)
+        phase("reid-train throughput (B=64, 751 classes) and extract_features (B=512; K5 in f32 parity mode)", card)
+        train_speed = reid_train_throughput(dev)
+        phase("reid_cli: 2 epochs on a synthetic ImageFolder, then --resume", card)
+        train_cli = run_reid_cli(tmp)
+        phase("tools: e2e_smoke, soak (1024 frames), egress_day dry run, graft_entry.entry()", card)
+        tools = run_tools(dev, tmp)
+
     floor_ms = k7["probe"]["bare_launch_us"] / 1e3
     kernels = [
         dict(name="crop_gather", route="cuda", source="vehicle_counting_tpu_torch/csrc/crops.cu",
@@ -2849,7 +3286,7 @@ def main() -> int:
              **k4["match_stage"]),
         dict(name="reid_block64", route="cuda", source="vehicle_counting_tpu_torch/csrc/reid_block.cu",
              replaces="vehicle_counting_tpu/ops/pallas/reid_block.py:139", launches=launches_sw["reid_block"],
-             path="switched", **k5),
+             path="switched", launches_extract_features_per_call=train_speed["k5_launches_per_call"], **k5),
         dict(name="conv1_s2_silu", route="cuda", source="vehicle_counting_tpu_torch/csrc/conv_s2.cu",
              replaces="vehicle_counting_tpu/ops/pallas/conv_s2.py:181", launches=launches_k6,
              path="layer-1 stand-alone", **k6["bfloat16"], edges=k6["bfloat16_edges"], f32=k6["float32"]),
@@ -2887,6 +3324,10 @@ def main() -> int:
           f"{telemetry['upload_gbps_p50_by_streams']} [{card}]")
     print(f"--profile run: {json.dumps(prof)} [{card}]")
     print(f"--weight run: {json.dumps(wts)} [{card}]")
+    print(f"reid-train parity, card against CPU: {json.dumps(train_parity)} [{card}]")
+    print(f"reid-train throughput: {json.dumps(train_speed)} [{card}]")
+    print(f"reid_cli: {json.dumps(train_cli)} [{card}]")
+    print(f"tools: {json.dumps(tools)} [{card}]")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

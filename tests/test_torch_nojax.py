@@ -65,6 +65,23 @@ PORT_MODULES = [
     "vehicle_counting_tpu_torch.serving",
     "vehicle_counting_tpu_torch.serving.artifact",
     "vehicle_counting_tpu_torch.serving.cli",
+    "vehicle_counting_tpu_torch.train",
+    "vehicle_counting_tpu_torch.train.reid_train",
+    "vehicle_counting_tpu_torch.train.augment",
+    "vehicle_counting_tpu_torch.train.data",
+    "vehicle_counting_tpu_torch.train.reid_cli",
+    "vehicle_counting_tpu_torch.utils.seed",
+    "vehicle_counting_tpu_torch.utils.registry",
+    "vehicle_counting_tpu_torch.utils.debug_draw",
+    "vehicle_counting_tpu_torch.tools.convert_weights",
+    "vehicle_counting_tpu_torch.tools.cocosplit",
+    "vehicle_counting_tpu_torch.tools.split_csv",
+    "vehicle_counting_tpu_torch.tools.split_images",
+    "vehicle_counting_tpu_torch.tools.yolo2coco",
+    "vehicle_counting_tpu_torch.tools.e2e_smoke",
+    "vehicle_counting_tpu_torch.tools.egress_day",
+    "vehicle_counting_tpu_torch.benchmarks.soak",
+    "vehicle_counting_tpu_torch.graft_entry",
 ]
 
 

@@ -68,6 +68,14 @@ def main(argv=None, *, sizes=None):
     ap.add_argument("--device", default="cuda", help="torch device; 'cpu' for a functional check")
     args = ap.parse_args(argv)
 
+    from vehicle_counting_tpu_torch.utils.device import on_device, require_device
+
+    dev = require_device(args.device)
+    with on_device(dev):  # the kernel wrappers launch on the current device
+        return _run(args, dev, sizes)
+
+
+def _run(args, dev, sizes):
     import torch
 
     from vehicle_counting_tpu_torch.benchmarks.load import calibrate_from_det
@@ -77,10 +85,9 @@ def main(argv=None, *, sizes=None):
     from vehicle_counting_tpu_torch.pipeline.step import detect_embed_core, pipeline_batch_step
     from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
     from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams
-    from vehicle_counting_tpu_torch.utils.device import card_line, require_device
+    from vehicle_counting_tpu_torch.utils.device import card_line
     from vehicle_counting_tpu_torch.utils.transfer import parallel_device_put, upload_gbps
 
-    dev = require_device(args.device)
     on_card = dev.type == "cuda"
 
     # BENCH_MODE selects the configuration being measured; the default

@@ -52,7 +52,8 @@ def yolo_params_from_jax(pytree, device=None) -> Dict[str, Any]:
 
 
 def reid_params_from_jax(params, stats, device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """JAX `init_reid` / `load_reid_weights` (params, stats) -> port dicts."""
+    """JAX `init_reid` / `load_reid_weights` (params, stats) -> port dicts,
+    the classifier head (fc1 + its BN stats, fc2) included where JAX has it."""
     return _convert(params, device), _convert(stats, device)
 
 

@@ -1,12 +1,16 @@
-"""ReID appearance CNN (DeepSORT's model), inference in PyTorch.
+"""ReID appearance CNN (DeepSORT's model) in PyTorch, inference and training.
 
-Port of `vehicle_counting_tpu/models/reid.py` (inference path of
-`reid_forward`, reid=True): conv3x3(+bias)+BN+ReLU+maxpool(3,2,1) stem,
-4 stages of 2 residual BasicBlocks (64->64, 64->128/s2, 128->256/s2,
-256->512/s2), 4x4 average pool and an L2-normalised 512-d embedding.
-BatchNorm stays explicit (running stats, f32), as in the reference. The
-TPU-only odd->even spatial pad (`_conv3_even`) is not carried over: it was
-a bitwise-neutral layout trick for the TPU.
+Port of `vehicle_counting_tpu/models/reid.py`: conv3x3(+bias)+BN+ReLU+
+maxpool(3,2,1) stem, 4 stages of 2 residual BasicBlocks (64->64,
+64->128/s2, 128->256/s2, 256->512/s2), 4x4 average pool, then either an
+L2-normalised 512-d embedding (`reid_forward`, the inference path) or the
+512->256->num_classes classifier head with BN1d and dropout that training
+uses (`reid_apply`, the JAX `reid_forward` with its whole contract).
+BatchNorm stays explicit (running stats, f32), as in the reference; in
+training it normalises with the batch statistics, over every shard of a
+data-parallel batch (`reid_apply` on a list of shards). The TPU-only
+odd->even spatial pad (`_conv3_even`) is not carried over: it was a
+bitwise-neutral layout trick for the TPU.
 
 Params and stats are plain dicts (OIHW conv weights), carried across from
 the JAX pytrees by `models/convert.py::reid_params_from_jax` or loaded
@@ -28,9 +32,11 @@ import torch
 import torch.nn.functional as F
 
 from vehicle_counting_tpu_torch.ops.reid_block import fold_bn, hwio, reid_block64
+from vehicle_counting_tpu_torch.utils.device import on_device
 
 EMBED_DIM = 512
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
 STAGES = ((64, 64, False), (64, 128, True), (128, 256, True), (256, 512, True))
 
 
@@ -44,9 +50,11 @@ def _bn_init(c, device):
             {"mean": torch.zeros(c, device=device), "var": torch.ones(c, device=device)})
 
 
-def init_reid(gen: torch.Generator, device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """Random-init (params, batch_stats) of the embedding network (the
-    reference's classifier head serves training only, which is not ported)."""
+def init_reid(gen: torch.Generator, num_classes: int = 751, device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Random-init (params, batch_stats), as the JAX `init_reid`: He-normal
+    convs, BN at identity, and the classifier head (fc1 512->256 + BN1d,
+    fc2 256->num_classes, normal / sqrt(fan_in)) drawn after the trunk, so
+    the embedding's weights do not depend on num_classes."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     bn_p, bn_s = _bn_init(64, device)
@@ -67,6 +75,11 @@ def init_reid(gen: torch.Generator, device=None) -> Tuple[Dict[str, Any], Dict[s
                 s["down"] = dbn_s
             params[name] = p
             stats[name] = s
+    fc1_w = torch.randn((EMBED_DIM, 256), generator=gen, dtype=torch.float32) / math.sqrt(EMBED_DIM)
+    fc2_w = torch.randn((256, num_classes), generator=gen, dtype=torch.float32) / math.sqrt(256.0)
+    bn_p, stats["fc1"] = _bn_init(256, device)
+    params["fc1"] = {"w": fc1_w.to(device), "b": torch.zeros(256, device=device), "bn": bn_p}
+    params["fc2"] = {"w": fc2_w.to(device), "b": torch.zeros(num_classes, device=device)}
     return params, stats
 
 
@@ -112,8 +125,9 @@ def _block_fused(p, s, x, dtype):
     return reid_block64(x.to(dtype), hwio(p["conv1"]["w"]), hwio(p["conv2"]["w"]), a1, b1, a2, b2).float()
 
 
-def reid_forward_nchw(params, stats, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """x [N, 3, 50, 50] normalised crops -> L2-normalised [N, 512] f32."""
+def _trunk(params, stats, x: torch.Tensor, dtype, parity: bool) -> torch.Tensor:
+    """Inference trunk: x [N, 3, 50, 50] -> the pooled [N, 512] f32, before
+    normalisation."""
     y = _conv(x, params["stem"]["w"], 1, 1, dtype) + params["stem"]["b"].view(1, -1, 1, 1)
     y = F.max_pool2d(torch.relu(_bn(y, params["stem"]["bn"], stats["stem"])), 3, 2, 1)
     fused = _reid_block_on()
@@ -122,20 +136,165 @@ def reid_forward_nchw(params, stats, x: torch.Tensor, dtype=torch.float32) -> to
             name = f"layer{si + 1}_{bi}"
             stride = 2 if (ds and bi == 0) else 1
             # the JAX conditions: stride 1, no downsample, 64 x 25 x 25, and
-            # bf16 on the card (the CPU runs the plain version at any dtype)
+            # bf16 on the card (the CPU runs the plain version at any dtype;
+            # `parity` also takes K5's f32 mode on the card, as JAX's
+            # interpret mode does for the trainer's evaluation)
             if (fused and stride == 1 and "down" not in params[name]
                     and tuple(y.shape[1:]) == (64, 25, 25)
-                    and (dtype == torch.bfloat16 or y.device.type == "cpu")):
+                    and (dtype == torch.bfloat16 or parity or y.device.type == "cpu")):
                 y = _block_fused(params[name], stats[name], y, dtype)
                 continue
             y = _basic_block(params[name], stats[name], y, stride, dtype)
-    emb = F.avg_pool2d(y, 4, 1).flatten(1)  # 50x50 input -> 4x4 -> 1x1
+    return F.avg_pool2d(y, 4, 1).flatten(1)  # 50x50 input -> 4x4 -> 1x1
+
+
+def _l2_normalise(emb: torch.Tensor) -> torch.Tensor:
     return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
+
+
+def reid_forward_nchw(params, stats, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """x [N, 3, 50, 50] normalised crops -> L2-normalised [N, 512] f32."""
+    return _l2_normalise(_trunk(params, stats, x, dtype, parity=False))
 
 
 def reid_forward(params, stats, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """JAX layout: x [N, 50, 50, 3] normalised crops -> [N, 512] embeddings."""
     return reid_forward_nchw(params, stats, x.permute(0, 3, 1, 2), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the JAX `reid_forward` contract: training mode, the classifier head, shards
+# ---------------------------------------------------------------------------
+
+def dropout_keep(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """The dropout's keep mask, p = 0.5 (the JAX `jax.random.bernoulli`
+    draw). A module-level function, so a test can replace it with the
+    values JAX draws from the same key."""
+    return torch.rand(shape, generator=gen, device=device) < 0.5
+
+
+def _each(fn, *cols):
+    """fn over the shards, each with its device made current."""
+    out = []
+    for args in zip(*cols):
+        with on_device(args[0].device):
+            out.append(fn(*args))
+    return out
+
+
+def _sum_on(parts, device):
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    return total
+
+
+def _bn_train(ys, ps, s, axes):
+    """Train-mode BatchNorm over the shards `ys` of one batch, written out
+    as the JAX `_bn`: normalise with the batch mean and the biased batch
+    variance over `axes` (two passes: the mean, then the mean of squared
+    deviations, each summed over every shard on the first shard's device
+    and sent back), and update the running stats with momentum 0.1 and the
+    unbiased variance. Returns (shards, new running stats)."""
+    d0 = ys[0].device
+    shape = (1, -1, 1, 1) if len(axes) == 3 else (1, -1)
+    n = sum(y.numel() for y in ys) / ys[0].shape[1]
+    count = torch.full((), n, dtype=ys[0].dtype, device=d0)
+    mean = _sum_on(_each(lambda y: y.sum(axes), ys), d0) / count
+    means = [mean.to(y.device).view(shape) for y in ys]
+    var = _sum_on(_each(lambda y, m: torch.square(y - m).sum(axes), ys, means), d0) / count
+    invs = [torch.rsqrt(var + BN_EPS).to(y.device).view(shape) for y in ys]
+    out = _each(lambda y, m, inv, p: (y - m) * inv * p["scale"].view(shape) + p["bias"].view(shape), ys, means, invs, ps)
+    mean, var = mean.detach(), var.detach()
+    unbiased = var * n / max(n - 1, 1)
+    new_s = {"mean": (1 - BN_MOMENTUM) * s["mean"] + BN_MOMENTUM * mean,
+             "var": (1 - BN_MOMENTUM) * s["var"] + BN_MOMENTUM * unbiased}
+    return out, new_s
+
+
+def _conv_train(xs, ps, stride, padding):
+    return _each(lambda x, p: F.conv2d(x, p["w"], stride=stride, padding=padding), xs, ps)
+
+
+def _block_train(ps, s, xs, stride: int):
+    y = _conv_train(xs, [p["conv1"] for p in ps], stride, 1)
+    y, s1 = _bn_train(y, [p["bn1"] for p in ps], s["bn1"], (0, 2, 3))
+    y = _conv_train([torch.relu(t) for t in y], [p["conv2"] for p in ps], 1, 1)
+    y, s2 = _bn_train(y, [p["bn2"] for p in ps], s["bn2"], (0, 2, 3))
+    new_s = {"bn1": s1, "bn2": s2}
+    if "down" in ps[0]:
+        xs = _conv_train(xs, [p["down"] for p in ps], stride, 0)
+        xs, new_s["down"] = _bn_train(xs, [p["down"]["bn"] for p in ps], s["down"], (0, 2, 3))
+    return [torch.relu(a + b) for a, b in zip(xs, y)], new_s
+
+
+def _trunk_train(pd, stats, xs):
+    """Training trunk over the shards (batch statistics, no K5, as JAX's
+    `reid_forward` with train=True): [n_i, 3, 50, 50] -> [n_i, 512]."""
+    new_stats: Dict[str, Any] = {}
+    y = _each(lambda x, p: F.conv2d(x, p["stem"]["w"], padding=1) + p["stem"]["b"].view(1, -1, 1, 1), xs, pd)
+    y, new_stats["stem"] = _bn_train(y, [p["stem"]["bn"] for p in pd], stats["stem"], (0, 2, 3))
+    y = _each(lambda t: F.max_pool2d(torch.relu(t), 3, 2, 1), y)
+    for si, (_, _, ds) in enumerate(STAGES):
+        for bi in range(2):
+            name = f"layer{si + 1}_{bi}"
+            y, new_stats[name] = _block_train([p[name] for p in pd], stats[name], y, 2 if (ds and bi == 0) else 1)
+    return _each(lambda t: F.avg_pool2d(t, 4, 1).flatten(1), y), new_stats
+
+
+def reid_apply(params, stats, x, *, train: bool = False, reid: bool = True, dropout=None):
+    """The JAX `reid_forward(params, stats, x, train=, reid=, dropout_key=)`:
+    x [B, 50, 50, 3] normalised crops, or a list of such shards on their
+    devices (one batch split for data parallelism: the BN statistics and
+    the dropout mask are the whole batch's). Returns (out, new_stats), out
+    a tensor or a list of shards like x:
+      reid=True  -> L2-normalised [B, 512] embeddings;
+      reid=False -> [B, num_classes] logits of the classifier head.
+    train=True normalises with the batch statistics and returns the
+    updated running stats; `dropout` (a torch.Generator on the first
+    shard's device, or None for no dropout) draws the head's keep mask.
+    train=False is the inference path in f32, through K5 when the fused
+    block is switched on (its f32 parity mode on the card, as JAX's
+    interpret mode). Each shard runs with weights copied to its device:
+    autograd takes the gradients back to `params`."""
+    shards = list(x) if isinstance(x, (list, tuple)) else [x]
+    pdev = _leaf(params).device
+    pd = [params if s.device == pdev else _tree_to(params, s.device) for s in shards]
+    xs = [s.permute(0, 3, 1, 2) for s in shards]
+    if train:
+        embs, new_stats = _trunk_train(pd, stats, xs)
+    else:
+        sd = [stats if s.device == pdev else _tree_to(stats, s.device) for s in shards]
+        embs = _each(lambda t, p, st: _trunk(p, st, t, torch.float32, parity=True), xs, pd, sd)
+        new_stats = dict(stats)  # inference: the running stats pass through
+    if reid:
+        if "fc1" in stats:
+            new_stats["fc1"] = stats["fc1"]
+        out = _each(_l2_normalise, embs)
+    else:
+        h = _each(lambda e, p: e @ p["fc1"]["w"] + p["fc1"]["b"], embs, pd)
+        if train:
+            h, new_stats["fc1"] = _bn_train(h, [p["fc1"]["bn"] for p in pd], stats["fc1"], (0,))
+        else:
+            h = _each(lambda t, p, st: (t - st["fc1"]["mean"]) * torch.rsqrt(st["fc1"]["var"] + BN_EPS)
+                      * p["fc1"]["bn"]["scale"] + p["fc1"]["bn"]["bias"], h, pd, sd)
+        h = [torch.relu(t) for t in h]
+        if train and dropout is not None:
+            keep = dropout_keep(dropout, (sum(t.shape[0] for t in h), h[0].shape[1]), shards[0].device)
+            keeps = [k.to(t.device) for k, t in zip(keep.split([t.shape[0] for t in h]), h)]
+            h = [torch.where(k, t / 0.5, 0.0) for k, t in zip(keeps, h)]
+        out = _each(lambda t, p: t @ p["fc2"]["w"] + p["fc2"]["b"], h, pd)
+    return (out if isinstance(x, (list, tuple)) else out[0]), new_stats
+
+
+def _leaf(tree):
+    return _leaf(next(iter(tree.values()))) if isinstance(tree, dict) else tree
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -148,8 +307,8 @@ def reid_state_dict_to_params(sd, device=None) -> Tuple[Dict[str, Any], Dict[str
     Torch layout: conv.0/conv.1 stem; layer{1..4}.{0,1}.conv1/bn1/conv2/bn2
     (+ .downsample.0/.1); classifier.0 (linear), .1 (bn1d), .4 (linear).
     Conv weights stay OIHW; dense weights are stored [in, out] as in the
-    JAX package (the classifier serves training only and is carried for
-    completeness).
+    JAX package (the classifier head serves training, `reid_apply` with
+    reid=False).
     """
     import numpy as np
 

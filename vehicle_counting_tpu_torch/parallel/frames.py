@@ -32,7 +32,6 @@ not yet overlap.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Tuple
 
@@ -42,15 +41,9 @@ from vehicle_counting_tpu_torch.models.yolo import YoloConfig
 from vehicle_counting_tpu_torch.parallel.mesh import DeviceMesh, tree_to
 from vehicle_counting_tpu_torch.pipeline.step import detect_embed_core, tracker_scan
 from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams
+from vehicle_counting_tpu_torch.utils.device import on_device
 
 AXIS = "frame"
-
-
-def on_device(device):
-    """`device` made the thread's current CUDA device for the block (a no-op
-    on the CPU): the kernel wrappers launch through `ctypes` on the current
-    device with the stream of their tensors' device, which must agree."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _shards(x, n: int, what: str):

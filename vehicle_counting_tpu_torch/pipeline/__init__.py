@@ -39,7 +39,7 @@ from vehicle_counting_tpu_torch.models.detector import (
     VEHICLE_CLASS_NAMES,
     class_lut,
 )
-from vehicle_counting_tpu_torch.utils.device import require_device
+from vehicle_counting_tpu_torch.utils.device import on_device, require_device
 from vehicle_counting_tpu_torch.utils.profiling import StageTimer, trace
 from vehicle_counting_tpu_torch.utils.transfer import parallel_device_put
 
@@ -223,7 +223,13 @@ class CountingPipeline:
         return None
 
     def run_video(self, video_path: str, visualize: bool = True) -> Dict:
-        """Process one video; returns {'csv', 'counts', 'fps', 'frames'}."""
+        """Process one video; returns {'csv', 'counts', 'fps', 'frames'}.
+        The pipeline's device is the current CUDA device throughout (the
+        kernel wrappers launch on the current device)."""
+        with on_device(self.device):
+            return self._run_video(video_path, visualize)
+
+    def _run_video(self, video_path: str, visualize: bool) -> Dict:
         from vehicle_counting_tpu_torch.ops.letterbox import content_upload_exact, host_letterbox_yuv420
         from vehicle_counting_tpu_torch.pipeline import step as step_mod
         from vehicle_counting_tpu_torch.tracking.deepsort import init_states
@@ -363,6 +369,10 @@ class CountingPipeline:
         path. With `frame_parallel`, each device of the mesh detects its
         shard of the batch with its own copy of the weights, and the
         shards are joined in frame order. Returns {'csv', 'frames', 'fps'}."""
+        with on_device(self.device):
+            return self._run_video_detect_only(video_path)
+
+    def _run_video_detect_only(self, video_path: str) -> Dict:
         import pandas as pd
 
         from vehicle_counting_tpu_torch.ops.letterbox import content_upload_exact, host_letterbox_yuv420

@@ -39,6 +39,7 @@ from vehicle_counting_tpu_torch.counting import VehicleCounter, count_directions
 from vehicle_counting_tpu_torch.counting.visualize import visualize_merged
 from vehicle_counting_tpu_torch.data.video import VideoReader, VideoWriter
 from vehicle_counting_tpu_torch.pipeline import CountingPipeline, prefetch
+from vehicle_counting_tpu_torch.utils.device import on_device
 from vehicle_counting_tpu_torch.utils.profiling import StageTimer
 
 
@@ -85,6 +86,10 @@ class MultiCamCountingPipeline:
         return results
 
     def _run_group(self, readers: List[VideoReader], hp, src_hw: Tuple[int, int], visualize: bool) -> List[Dict]:
+        with on_device(self.base.device):  # the kernel wrappers launch on the current device
+            return self._run_group_on_device(readers, hp, src_hw, visualize)
+
+    def _run_group_on_device(self, readers, hp, src_hw, visualize) -> List[Dict]:
         from vehicle_counting_tpu_torch.ops.letterbox import content_rows, content_upload_exact, host_letterbox_yuv420
         from vehicle_counting_tpu_torch.parallel.cameras import camera_params, make_multicam_step, regroup_states
         from vehicle_counting_tpu_torch.pipeline import step as step_mod

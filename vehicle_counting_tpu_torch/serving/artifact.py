@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from vehicle_counting_tpu_torch import __version__
+from vehicle_counting_tpu_torch.utils.device import on_device
 
 MANIFEST_NAME = "manifest.json"
 WEIGHTS_NAME = "weights.npz"
@@ -711,7 +712,9 @@ class ServingArtifact:
 
             def fn(*args, _name=name, _step=step):
                 self._check(_name, args)
-                return _step(*args)
+                # the inputs' device is current for the kernel wrappers' launches
+                with on_device(_leaves(args)[0].device):
+                    return _step(*args)
 
             self._bound[name] = fn
         return fn

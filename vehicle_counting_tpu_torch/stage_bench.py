@@ -99,6 +99,14 @@ def main(argv=None, *, src_hw=(720, 1280), size=640, variant="yolov5s"):
     ap.add_argument("--device", default="cuda", help="torch device; 'cpu' for a functional check")
     args = ap.parse_args(argv)
 
+    from vehicle_counting_tpu_torch.utils.device import on_device, require_device
+
+    dev = require_device(args.device)
+    with on_device(dev):  # the kernel wrappers launch on the current device
+        return _run(args, dev, src_hw, size, variant)
+
+
+def _run(args, dev, src_hw, size, variant):
     import torch
 
     from vehicle_counting_tpu_torch.models.detector import fused_detect_tail
@@ -116,9 +124,8 @@ def main(argv=None, *, src_hw=(720, 1280), size=640, variant="yolov5s"):
     from vehicle_counting_tpu_torch.pipeline.step import detect_embed_core, pipeline_batch_step, tracker_scan
     from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, embed_detections_batch, init_states
     from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams, TrackerState
-    from vehicle_counting_tpu_torch.utils.device import card_line, require_device
+    from vehicle_counting_tpu_torch.utils.device import card_line
 
-    dev = require_device(args.device)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     B, (H, W) = args.batch, src_hw
     det_hw = autoshape_hw((H, W), size)

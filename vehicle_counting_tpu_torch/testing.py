@@ -222,7 +222,7 @@ def fake_reid_state_dict(rng: np.random.Generator) -> Dict[str, np.ndarray]:
     sd["conv.0.bias"] = rng.normal(0, 0.1, 64).astype(np.float32)
     bn("conv.1", 64)
     for name, p in params.items():
-        if name == "stem":
+        if not name.startswith("layer"):  # the stem above; no classifier head
             continue
         base = name.replace("_", ".")  # layer1_0 -> layer1.0
         c = p["conv1"]["w"].shape[0]

@@ -131,8 +131,10 @@ class FrameRunner:
             torch.cuda.current_stream(self.device).wait_stream(side)
             warm = [w.launches for w in _COUNTED]
             self.graph = torch.cuda.CUDAGraph()
-            # thread_local: another thread (the pipeline's upload worker) may allocate meanwhile
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            # thread_local: another thread (the pipeline's upload worker) may allocate meanwhile.
+            # The capture stream is this device's: torch.cuda.graph's default one is made once per
+            # process, on whichever device was current then, and a capture on another card fails.
+            with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
                 self._body()
         for w, b, m in zip(_COUNTED, before, warm):
             if w.launches > m:

@@ -3,6 +3,7 @@ tags every measurement of this package."""
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 
 
@@ -27,6 +28,21 @@ def require_device(device):
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device '{dev}' requested but no CUDA device is available")
     return dev
+
+
+def _needs_guard(device) -> bool:
+    return device.type == "cuda"
+
+
+def on_device(device):
+    """`device` made the thread's current CUDA device for the block (a no-op
+    on the CPU). The kernel wrappers launch through `ctypes` on the current
+    device with the stream of their tensors' device, which must agree, so
+    every entry point that takes a device runs its launches inside this."""
+    import torch
+
+    device = torch.device(device)
+    return torch.cuda.device(device) if _needs_guard(device) else contextlib.nullcontext()
 
 
 def get_devices_info() -> str:
