@@ -33,6 +33,12 @@ Phases, each fatal on failure:
             S=256; alone and inside the batched transpose rule; its fused
             matching stage vs the plain stage on 306 masked stages (normal,
             flipped, empty, all-rejected, keys >= 2^22, K = 64 and 320);
+  K4 solve  K4 through `tracking.solve_assignment` on full [N, M] costs
+            (tests/test_assignment.py's shapes and their transposes, the
+            masked-rows case, 1023 x 1023, 300 x 1023, 1023 x 300):
+            array-equal to the CPU's plain solve, total cost scipy's to
+            1e-5, one K4 launch per call, [1024, 1024] refused; one call's
+            ms per shape against scipy's on the host;
   K5        fused ReID stage-1 block vs its plain version: bf16 at N=128
             (the embed's launch) and N=3840 (128 frames x 30), with cuDNN's
             bf16 block timed beside them, batch invariance (bitwise), f32
@@ -530,6 +536,105 @@ def check_k4(dev):
                           "empty_graph_node_ms": t_empty, "plain_ms": min(t_plain_a, t_plain_b), **sbd,
                           "library_ms": None, "stages_checked": n_stage}
     return res
+
+
+SA_SHAPES = ((1, 1), (3, 3), (5, 8), (8, 8), (16, 16), (32, 40))  # tests/test_assignment.py's
+SA_LARGE = ((1023, 1023), (300, 1023), (1023, 300))  # up to K4's MAX_S
+
+
+@contextlib.contextmanager
+def count_calls(module, name, counter):
+    """Counts the calls of module.<name> in counter["calls"] for the block."""
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        counter["calls"] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield counter
+    finally:
+        setattr(module, name, fn)
+
+
+def check_solve_assignment(dev):
+    """K4's third route: `tracking.solve_assignment` on full [N, M] f32
+    costs, padded to a square and solved in one `insert_rows` launch (no
+    host sync), over tests/test_assignment.py's shapes and their
+    transposes, the masked-rows case, [1023, 1023], [300, 1023] and [1023,
+    300]: array-equal to the plain version on the CPU, its total cost
+    scipy's to 1e-5, exactly one K4 launch per call; [1024, 1024] raises
+    on the card. Times one call per shape (CUDA events) against scipy on
+    the host. Bound: the cost read once and the rows written, or 8 f32
+    operations per column per Dijkstra step of this data (the plain
+    version's steps, counted), whichever is larger."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from vehicle_counting_tpu_torch.ops import assignment
+    from vehicle_counting_tpu_torch.tracking import solve_assignment
+    from vehicle_counting_tpu_torch.tracking.assignment import BIG
+
+    rng = np.random.default_rng(SEED + 11)
+    cases = []
+    for n, m in SA_SHAPES:
+        cost = rng.uniform(0, 1, (n, m)).astype(np.float32)
+        cases += [(f"{n}x{m}", cost), (f"{n}x{m}^T", np.ascontiguousarray(cost.T))]
+    masked = np.full((4, 4), BIG, np.float32)  # 2 real rows, 2 BIG rows, 3 real columns
+    masked[:2, :3] = np.minimum(rng.uniform(0, 0.5, (2, 3)), 0.2 + 1e-5)
+    cases.append(("masked 4x4", masked))
+    cases += [(f"{n}x{m}", rng.random((n, m), dtype=np.float32)) for n, m in SA_LARGE]
+
+    want, steps, plain_ms = {}, {}, {}
+    for name, cost in cases:  # the plain version on the CPU, its Dijkstra steps counted
+        with count_calls(torch, "argmin", {"calls": 0}) as c:
+            t0 = time.perf_counter()
+            want[name] = solve_assignment(torch.from_numpy(cost))
+            plain_ms[name] = (time.perf_counter() - t0) * 1e3
+        steps[name] = c["calls"]
+    gpu = {name: torch.from_numpy(cost).to(dev) for name, cost in cases}
+    torch.cuda.synchronize()
+    assignment.insert_rows_batched.launches = 0
+    got = {name: solve_assignment(gpu[name]) for name, _ in cases}
+    torch.cuda.synchronize()
+    launches = assignment.insert_rows_batched.launches
+    if launches != len(cases):
+        raise AssertionError(f"solve_assignment: {launches} K4 launches for {len(cases)} calls, want one per call")
+    rows = []
+    for name, cost in cases:
+        g = got[name]
+        if g.device != gpu[name].device or g.dtype != torch.int64 or not torch.equal(g.cpu(), want[name]):
+            raise AssertionError(f"solve_assignment {name}: the card's {g.dtype} on {g.device} differs from the CPU's")
+        r2c = g.cpu().numpy()
+        t0 = time.perf_counter()
+        ri, ci = linear_sum_assignment(cost)
+        scipy_ms = (time.perf_counter() - t0) * 1e3
+        total, want_total = cost[r2c >= 0, r2c[r2c >= 0]].astype(np.float64).sum(), cost[ri, ci].astype(np.float64).sum()
+        if (r2c >= 0).sum() != min(cost.shape) or abs(total - want_total) > 1e-5:
+            raise AssertionError(f"solve_assignment {name}: total {total} against scipy's {want_total}")
+        n, m = cost.shape
+        s = max(n, m)
+        ms = cuda_ms(lambda: solve_assignment(gpu[name]), 5)
+        bd = bound(nbytes(gpu[name], g), 8 * s * steps[name], F32_FLOPS)
+        rows.append({"shape": name, "ms": ms, "plain_ms": plain_ms[name], "scipy_ms": scipy_ms,
+                     "dijkstra_steps": steps[name], "total_minus_scipy": total - want_total, **bd})
+    try:
+        solve_assignment(torch.zeros((1024, 1024), device=dev))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("solve_assignment took a [1024, 1024] cost on the card: past K4's MAX_S it must raise")
+    for r in rows:
+        print(f"solve_assignment {r['shape']}: array-equal to the CPU, total - scipy's {r['total_minus_scipy']:.2e}; "
+              f"K4 {r['ms']:.4f} ms, plain (host CPU) {r['plain_ms']:.2f} ms, scipy (host) {r['scipy_ms']:.4f} ms; "
+              f"{r['dijkstra_steps']} Dijkstra steps, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    print(f"solve_assignment: {len(cases)} calls, {launches} K4 launches (one per call); [1024, 1024] raised: {refused}")
+    top = rows[-len(SA_LARGE)]  # [1023, 1023]
+    return {"launches": launches, "calls": len(cases), "max_abs_err": 0.0, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "scipy_ms": top["scipy_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None, "shape": top["shape"], "refused_1024": refused,
+            "shapes": rows}
 
 
 def check_k5(dev):
@@ -1452,20 +1557,23 @@ def check_k1_source(dev, b=128):
             "direct": n_valid - n_staged, "transpose_ms": min(t_tr, t_tr2), "transpose_bound_ms": bd_tr["bound_ms"]}
 
 
-def run_detect_only(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES):
+def run_detect_only(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES, out="out_detect_only",
+                    config_over=None):
     """The CLI with --detect_only: {cam}_detections.csv with its schema, a
-    row count, frames/s; no tracker kernel may launch. Returns (frames/s,
-    launches, rows)."""
+    row count, frames/s; no tracker kernel may launch. `config_over` sets
+    configs.yaml keys. Returns (frames/s, launches, the CSV's rows)."""
     import pandas as pd
     import torch
 
     from vehicle_counting_tpu_torch import run
 
-    out_dir = os.path.join(tmp, "out_detect_only")
+    out_dir = os.path.join(tmp, out)
     args = run.parser.parse_args(["--input_path", path, "--output_path", out_dir, "--device", str(dev),
-                                  "--mapping", json.dumps(mapping), "--detect_only"])
+                                  "--mapping", json.dumps(mapping), "--detect_only", "--no_visualize"])
     config, cam_config = run.load_configs(args)
     config.min_conf = conf
+    for key, value in (config_over or {}).items():
+        setattr(config, key, value)
     cam_config.zone_path = zones
     counters = kernel_counters()
     zero_counts(counters)
@@ -1482,9 +1590,9 @@ def run_detect_only(dev, tmp, path, zones, conf, mapping, n_frames=N_FRAMES):
         raise AssertionError("detect-only: a non-finite value or a non-positive score in the CSV")
     if any(launches.values()):
         raise AssertionError(f"detect-only launched tracker / ReID kernels: {launches}")
-    print(f"detect-only CLI: {res['frames']} frames, {res['fps']:.2f} frames/s (cold, model init outside), "
+    print(f"detect-only CLI on {dev}: {res['frames']} frames, {res['fps']:.2f} frames/s (cold, model init outside), "
           f"{len(df)} rows over {df.frame_id.nunique()} frames, {df.groupby('frame_id').size().mean():.1f} per frame")
-    return res["fps"], launches, len(df)
+    return res["fps"], launches, df
 
 
 def _gap_conf(yp, cfg, imgs, n):
@@ -1833,11 +1941,12 @@ def write_multicam_videos(tmp):
     return vids, os.path.join(vids, "zones"), paths
 
 
-def run_cli_dir(dev, tmp, vids, zones, conf, mapping, out, multicam, visualize=False):
-    """The CLI over a directory of videos, serial or with --multicam.
-    Returns {camera-frames/s of the loops (decode to readback, no model
-    init, CSV or MP4), the CLI's wall, the kernel counts of that run, each
-    camera's frames, CSV rows and MP4 path}."""
+def run_cli_dir(dev, tmp, vids, zones, conf, mapping, out, multicam, visualize=False, config_over=None):
+    """The CLI over a directory of videos, serial or with --multicam
+    (`config_over` sets configs.yaml keys). Returns {camera-frames/s of the
+    loops (decode to readback, no model init, CSV or MP4), the CLI's wall,
+    the kernel counts of that run, each camera's frames, CSV rows and MP4
+    path}."""
     import pandas as pd
     import torch
 
@@ -1849,6 +1958,8 @@ def run_cli_dir(dev, tmp, vids, zones, conf, mapping, out, multicam, visualize=F
                                   *(() if visualize else ("--no_visualize",))])
     config, cam_config = run.load_configs(args)
     config.min_conf = conf
+    for key, value in (config_over or {}).items():
+        setattr(config, key, value)
     cam_config.zone_path = zones
     counters = kernel_counters()
     zero_counts(counters)
@@ -2173,18 +2284,32 @@ def _serving_config(dev, tmp):
     return path, mapping
 
 
-def _serving_cli(*argv):
+def _serving_cli(*argv, card=None):
     """`python -m vehicle_counting_tpu_torch.serving.cli <argv>` in a fresh
-    process from this checkout; -> its last stdout line as JSON."""
+    process from this checkout; -> its last stdout line as JSON. With
+    `card`, the process makes cuda:<card> its current device (TF32 off)
+    before the CLI's main, and the result gains each card's
+    `max_memory_allocated` over the run."""
     import subprocess
 
     here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run([sys.executable, "-m", "vehicle_counting_tpu_torch.serving.cli", *argv], cwd=here,
-                          env=dict(os.environ, PYTHONPATH=here), capture_output=True, text=True, timeout=600)
+    cmd = ["-m", "vehicle_counting_tpu_torch.serving.cli", *argv]
+    if card is not None:
+        cmd = ["-c", "import json, torch\n"
+                     f"torch.cuda.set_device({card})\n"
+                     "torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False\n"
+                     "from vehicle_counting_tpu_torch.serving import cli\n"
+                     f"cli.main({list(argv)!r})\n"
+                     "print(json.dumps([torch.cuda.max_memory_allocated(d) for d in range(torch.cuda.device_count())]))\n"]
+    proc = subprocess.run([sys.executable, *cmd], cwd=here, env=dict(os.environ, PYTHONPATH=here),
+                          capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"serving.cli {argv[0]} failed (rc {proc.returncode}):\n{proc.stdout[-3000:]}\n"
                              f"{proc.stderr[-3000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    lines = proc.stdout.strip().splitlines()
+    if card is None:
+        return json.loads(lines[-1])
+    return dict(json.loads(lines[-2]), max_memory_allocated=json.loads(lines[-1]))
 
 
 def run_serving(dev, tmp):
@@ -3039,25 +3164,110 @@ def multi_card_train(n, per_card=64, steps=20):
     return out
 
 
+F32 = {"compute_dtype": "float32"}  # f32 pipelines turn TF32 off
+
+
+def _card1_against_card0(what, runs):
+    """runs {card: (launches, {camera: CSV rows})} for cards 0 and 1: the
+    same launches, the same cameras, every CSV equal row for row (all
+    columns but the per-track colour), some rows in all."""
+    diff = {}
+    for cam, df0 in runs[0][1].items():
+        df1 = runs[1][1].get(cam)
+        n_bad, first = _csv_diff(df0, df1) if df1 is not None else (len(df0), "missing on cuda:1")
+        diff[cam] = {"rows": [len(df0), None if df1 is None else len(df1)], "differing_rows": n_bad, "first": first}
+    res = {"launches": [runs[i][0] for i in (0, 1)], "csv": diff}
+    print(f"{what}, cuda:1 against cuda:0 at f32: {json.dumps(res, default=str)}")
+    if (runs[0][0] != runs[1][0] or set(runs[0][1]) != set(runs[1][1])
+            or any(d["differing_rows"] for d in diff.values()) or not sum(d["rows"][0] for d in diff.values())):
+        raise AssertionError(f"{what}: cuda:1 differs from cuda:0: {res}")
+    return res
+
+
 def serial_cli_on_card1(tmp, path, zones, conf, mapping):
     """The serial CLI with --device cuda:1 against --device cuda:0, f32
     (compute_dtype float32; TF32 off), no MP4 pass: the CSVs equal row for
     row (every column but the per-track colour), the same kernel launches."""
     import torch
 
+    runs, fps = {}, []
+    for i in (0, 1):
+        f, launches, df = run_pipeline(torch.device("cuda", i), tmp, path, zones, conf, mapping, out=f"f32_cuda{i}",
+                                       extra_args=("--no_visualize",), config_over=F32)
+        runs[i] = (launches, {"cam": df})
+        fps.append(f)
+    return dict(_card1_against_card0("serial CLI", runs), fps=fps)
+
+
+def detect_only_on_card1(tmp, path, zones, conf, mapping):
+    """`run --detect_only --device cuda:1` against cuda:0 at f32: the
+    detections CSVs equal row for row, the same (tracker-free) launches."""
+    import torch
+
     runs = {}
     for i in (0, 1):
-        fps, launches, df = run_pipeline(torch.device("cuda", i), tmp, path, zones, conf, mapping,
-                                         out=f"f32_cuda{i}", extra_args=("--no_visualize",),
-                                         config_over={"compute_dtype": "float32"})
-        runs[i] = (fps, launches, df)
-    diff, first = _csv_diff(runs[0][2], runs[1][2])
-    res = {"rows": [len(runs[i][2]) for i in (0, 1)], "differing_rows": diff, "first": first,
-           "fps": [runs[i][0] for i in (0, 1)], "launches": [runs[i][1] for i in (0, 1)]}
-    print(f"serial CLI, cuda:1 against cuda:0 at f32: {json.dumps(res, default=str)}")
-    if diff or not len(runs[0][2]) or runs[0][1] != runs[1][1]:
-        raise AssertionError(f"--device cuda:1 differs from cuda:0: {res}")
+        _, launches, df = run_detect_only(torch.device("cuda", i), tmp, path, zones, conf, mapping,
+                                          out=f"det_f32_cuda{i}", config_over=F32)
+        runs[i] = (launches, {"detections": df})
+    return _card1_against_card0("detect-only CLI", runs)
+
+
+def multicam_on_card1(tmp, conf, mapping):
+    """`run --multicam --device cuda:1` against cuda:0 at f32, no MP4 pass,
+    over the multi-camera phase's four videos: each camera's CSV equal row
+    for row, the same launches (K2 once per frame-round)."""
+    import torch
+
+    vids, zones, _ = write_multicam_videos(tmp)
+    runs = {}
+    for i in (0, 1):
+        r = run_cli_dir(torch.device("cuda", i), tmp, vids, zones, conf, mapping, f"mc_f32_cuda{i}", multicam=True,
+                        config_over=F32)
+        runs[i] = (r["launches"], r["dfs"])
+    return _card1_against_card0("multi-camera CLI", runs)
+
+
+def serving_on_card1(tmp):
+    """`serving.cli export --device cuda:<i>` of the serving phase's
+    configuration at f32, then `verify` in a fresh process whose current
+    device is cuda:<i> (the artifact records only the platform, so verify
+    runs on the current device), for i = 0 and 1: bit_exact on both, the
+    same launches, and the step's memory on card i alone."""
+    import torch
+    import yaml
+
+    from vehicle_counting_tpu_torch.serving import cli
+
+    cfg, mapping = _serving_config(torch.device("cuda", 0), tmp)
+    with open(cfg) as f:
+        settings = yaml.safe_load(f)
+    settings["settings"].update(F32)
+    cfg = os.path.join(tmp, "serving_configs_f32.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(settings, f)
+    res = {}
+    for i in (0, 1):
+        art = os.path.join(tmp, f"artifact_f32_cuda{i}")
+        cli.main(["export", "--out", art, "--config", cfg, "--mapping", mapping, "--device", f"cuda:{i}"])
+        v = _serving_cli("verify", "--artifact", art, "--batches", str(SERVE_BATCHES), card=i)
+        mem = v["max_memory_allocated"]
+        res[i] = {k: v[k] for k in ("bit_exact", "launches", "live_ms_per_batch", "artifact_ms_per_batch")}
+        res[i]["max_memory_allocated"] = mem
+        if not v["bit_exact"] or not mem[i] or any(m for d, m in enumerate(mem) if d != i):
+            raise AssertionError(f"serving verify with cuda:{i} current: {res[i]} (bit_exact, and memory on card "
+                                 f"{i} alone, wanted)")
+    print(f"serving verify, cuda:1 current against cuda:0 current, f32: {json.dumps(res)}")
+    if res[0]["launches"] != res[1]["launches"] or not res[1]["launches"]["K2"]:
+        raise AssertionError(f"serving verify: launches on cuda:1 {res[1]['launches']}, cuda:0 {res[0]['launches']}")
     return res
+
+
+def second_card(tmp, path, zones, conf, mapping):
+    """(e) of --multi-card: every entry point that takes a device, on cuda:1
+    against cuda:0 at f32."""
+    return {"serial_cli": serial_cli_on_card1(tmp, path, zones, conf, mapping),
+            "detect_only": detect_only_on_card1(tmp, path, zones, conf, mapping),
+            "multicam": multicam_on_card1(tmp, conf, mapping), "serving": serving_on_card1(tmp)}
 
 
 def multi_card(argv) -> int:
@@ -3070,8 +3280,13 @@ def multi_card(argv) -> int:
     per batch in turns; (c) `run --frame_parallel` against the default run
     on the smoke video, in turns; (d) the camera fleet, one process per
     card joined over NCCL (`run_fleet`); (e) the serial CLI with --device
-    cuda:1 against cuda:0 at f32, row for row; (f) the data-parallel ReID
-    train step over every card against one card, and images/s; (g)
+    cuda:1 against cuda:0 at f32, row for row, then the other entry points
+    that take a device the same way: `run --detect_only` and `run
+    --multicam` (each CSV row for row, the same launches), and `serving.cli
+    export --device cuda:<i>` with `verify` in a fresh process whose
+    current device is cuda:<i> (bit_exact, the same launches, the step's
+    memory on that card alone); (f) the data-parallel ReID train step over
+    every card against one card, and images/s; (g)
     `graft_entry.dryrun_multichip` over every card."""
     import torch
 
@@ -3098,8 +3313,8 @@ def multi_card(argv) -> int:
         ab = framedp_production_ab(dev, path, mesh, conf, mapping)
         phase("multi-card (c): the CLI with --frame_parallel against the default run", card)
         cli = framedp_cli_ab(dev, tmp, path, zones, conf, mapping)
-        phase("multi-card (e): the serial CLI with --device cuda:1 against cuda:0, f32", card)
-        card1 = serial_cli_on_card1(tmp, path, zones, conf, mapping)
+        phase("multi-card (e): the serial CLI, detect-only, multicam and serving on cuda:1 against cuda:0, f32", card)
+        card1 = second_card(tmp, path, zones, conf, mapping)
     phase(f"multi-card (d): the camera fleet, {n} processes over NCCL", card)
     fl = run_fleet(n)
     phase(f"multi-card (f): the data-parallel ReID train step over {n} cards against one", card)
@@ -3109,7 +3324,7 @@ def multi_card(argv) -> int:
 
     dry = graft_entry.dryrun_multichip(n)
     print(json.dumps({"multi_card": {"cards": n, "card": card, "framedp": fp, "main_path_shapes": ab, "cli": cli,
-                                     "fleet": fl, "serial_cli_cuda1": card1, "train": tr, "dryrun": dry}},
+                                     "fleet": fl, "cuda1": card1, "train": tr, "dryrun": dry}},
                      default=str))
     return 0
 
@@ -3163,6 +3378,8 @@ def main() -> int:
     k3 = check_k3(dev)
     phase("K4 batched assignment", card)
     k4 = check_k4(dev)
+    phase("K4 through solve_assignment: full [N, M] costs, one launch per call", card)
+    sa = check_solve_assignment(dev)
     phase("K5 fused ReID stage-1 block", card)
     k5 = check_k5(dev)
     phase("embed A/B: ReID embed with K5 off and on", card)
@@ -3204,7 +3421,8 @@ def main() -> int:
         phase("compacted stage path (K4 insert_rows, stand-alone)", card)
         launches_ins = run_compacted_stage_path(dev)
         phase("detect-only: the CLI with --detect_only", card)
-        fps_det, launches_det, rows_det = run_detect_only(dev, tmp, path, zones, conf, mapping)
+        fps_det, launches_det, df_det = run_detect_only(dev, tmp, path, zones, conf, mapping)
+        rows_det = len(df_det)
         phase("raw-rgb: the CLI with thin_upload: false", card)
         launches_raw, fps_raw = run_raw_rgb(dev, tmp, path_sw, zones_sw, conf, mapping)
         phase("parity", card)
@@ -3284,6 +3502,9 @@ def main() -> int:
              launches_graph_256_frames=fg["launches_staged_route"]["match_stage"],
              warmup_launches=warmup["match_stage"], replay_in_trace=fg["replay_in_trace"]["staged"],
              **k4["match_stage"]),
+        dict(name="solve_assignment", route="cuda", source="vehicle_counting_tpu_torch/csrc/assignment.cu",
+             replaces="vehicle_counting_tpu/ops/pallas/assignment.py:163",
+             path="tracking.solve_assignment, full [N, M] costs", **sa),
         dict(name="reid_block64", route="cuda", source="vehicle_counting_tpu_torch/csrc/reid_block.cu",
              replaces="vehicle_counting_tpu/ops/pallas/reid_block.py:139", launches=launches_sw["reid_block"],
              path="switched", launches_extract_features_per_call=train_speed["k5_launches_per_call"], **k5),
@@ -3316,6 +3537,7 @@ def main() -> int:
     print(f"serving: verify {json.dumps(serve['verify'])}; smoke {json.dumps(serve['smoke'])}; detect-only smoke "
           f"{json.dumps(serve['smoke_detect_only'])}; export {serve['export_s']:.2f} s [{card}]")
     print(f"multi-host on the card: {json.dumps(mh)} [{card}]")
+    print(f"solve_assignment on K4, per shape: {json.dumps(sa['shapes'])} [{card}]")
     print(f"launch cost, us: {json.dumps(k7['probe'])} [{card}]")
     print(f"stage_bench ms/frame (min, median): {json.dumps(stages)} [{card}]")
     print(f"bench: {json.dumps(metric)}; streamed p50 {telemetry['p50_fps']} min {telemetry['min_fps']} best "

@@ -111,9 +111,59 @@ def test_csv_parity_matches_jax(tmp_path):
         "label": [0, 1], "direction": [1, 1], "fpoint": ["(0, 0)", "(1, 1)"], "lpoint": ["(2, 2)", "(3, 3)"],
         "fframe": [1, 1], "lframe": [2, 2],
     })
-    pa, pb = str(tmp_path / "a.csv"), str(tmp_path / "b.csv")
+    pa, pb, pc = str(tmp_path / "a.csv"), str(tmp_path / "b.csv"), str(tmp_path / "c.csv")
     a.to_csv(pa, index=False)
     a[a.track_id == 1].to_csv(pb, index=False)  # one row dropped: an orphan
-    for x, y in ((pa, pb), (pa, pa)):
+    a.assign(label=[0, 2], lpoint=["(2, 2)", "(3, 4)"]).to_csv(pc, index=False)  # two fields of one row changed
+    for x, y in ((pa, pa), (pa, pc)):
         assert egress_day.csv_parity(x, y) == j_egress.csv_parity(x, y)
-    assert egress_day.csv_parity(pa, pb)[1]["orphans"] == 1 and egress_day.csv_parity(pa, pa)[0]
+    assert egress_day.csv_parity(pa, pa)[0]
+    assert egress_day.csv_parity(pa, pc)[1]["mismatches"] == {"box": 0, "label": 1, "direction": 0, "fpoint": 0,
+                                                              "lpoint": 1, "fframe": 0, "lframe": 0}
+    # the orphan's empty cells turn the merged integer columns into floats: the JAX copy's string compare then
+    # counts "0.0" against "0" on the row both files hold; the port compares the values, which are equal
+    (ok, d), (j_ok, jd) = egress_day.csv_parity(pa, pb), j_egress.csv_parity(pa, pb)
+    assert (ok, d["orphans"], d["rows_ref"], d["rows_tpu"]) == (j_ok, jd["orphans"], jd["rows_ref"], jd["rows_tpu"])
+    assert (ok, d["orphans"]) == (False, 1) and not any(d["mismatches"].values())
+    assert jd["mismatches"] == {"box": 0, "label": 1, "direction": 1, "fpoint": 0, "lpoint": 0, "fframe": 1,
+                                "lframe": 1}
+
+
+ROW = {"track_id": 1, "frame_id": 3, "box": "[10, 20, 30, 40]", "color": "(1, 2, 3)", "label": 2, "direction": 1,
+       "fpoint": "(20.0, 30.0)", "lpoint": "(21.5, 30.0)", "fframe": 3, "lframe": 9}
+# each field one unit off, and each field unparsable
+ONE_UNIT = {"box": "[11, 20, 30, 40]", "label": 3, "direction": 2, "fpoint": "(21.0, 30.0)", "lpoint": "(21.5, 31.0)",
+            "fframe": 4, "lframe": 10}
+GARBAGE = {"box": "[10, 20, x, 40]", "label": "car", "direction": "1.5", "fpoint": "(20.0 30.0", "lpoint": "",
+           "fframe": "three", "lframe": "[9]"}
+
+
+def _parity(tmp_path, ref, other):
+    pa, pb = str(tmp_path / "ref.csv"), str(tmp_path / "other.csv")
+    pd.DataFrame([ref]).to_csv(pa, index=False)
+    pd.DataFrame([other]).to_csv(pb, index=False)
+    return egress_day.csv_parity(pa, pb)
+
+
+def test_csv_parity_equal_values_written_differently(tmp_path):
+    """The same values in another writer's format are equal: ints as floats,
+    floats as ints, another spacing; only `color` may differ."""
+    other = dict(ROW, box="[10.0, 20.0, 30.0, 40.0]", fpoint="(20, 30)", lpoint="(21.50,30)", label="2.0",
+                 fframe=3.0, color="(9, 9, 9)")
+    ok, detail = _parity(tmp_path, ROW, other)
+    assert ok, detail
+    assert detail["mismatches"] == dict.fromkeys(ONE_UNIT, 0) and detail["orphans"] == 0
+
+
+@pytest.mark.parametrize("field", sorted(ONE_UNIT))
+def test_csv_parity_one_unit_change_fails_that_field(tmp_path, field):
+    ok, detail = _parity(tmp_path, ROW, dict(ROW, **{field: ONE_UNIT[field]}))
+    assert not ok
+    assert detail["mismatches"] == dict(dict.fromkeys(ONE_UNIT, 0), **{field: 1})
+
+
+@pytest.mark.parametrize("field", sorted(GARBAGE))
+def test_csv_parity_unparsable_field_is_a_mismatch(tmp_path, field):
+    ok, detail = _parity(tmp_path, ROW, dict(ROW, **{field: GARBAGE[field]}))
+    assert not ok
+    assert detail["mismatches"] == dict(dict.fromkeys(ONE_UNIT, 0), **{field: 1})

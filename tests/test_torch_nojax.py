@@ -82,6 +82,19 @@ PORT_MODULES = [
     "vehicle_counting_tpu_torch.tools.egress_day",
     "vehicle_counting_tpu_torch.benchmarks.soak",
     "vehicle_counting_tpu_torch.graft_entry",
+    "vehicle_counting_tpu_torch._lazy",
+    "vehicle_counting_tpu_torch.models",
+    "vehicle_counting_tpu_torch.tracking",
+    "vehicle_counting_tpu_torch.utils",
+]
+# packages whose names resolve lazily (`_lazy.py`): each name of `__all__`,
+# and the top level's CountingPipeline
+PUBLIC_PACKAGES = [
+    "vehicle_counting_tpu_torch",
+    "vehicle_counting_tpu_torch.ops",
+    "vehicle_counting_tpu_torch.models",
+    "vehicle_counting_tpu_torch.tracking",
+    "vehicle_counting_tpu_torch.utils",
 ]
 
 
@@ -93,6 +106,31 @@ def test_port_imports_without_jax():
         "import importlib\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'vehicle_counting_tpu') for k, v in sys.modules.items()"
+        " if v is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_public_names_resolve_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['vehicle_counting_tpu'] = None\n"
+        "import importlib\n"
+        "n = 0\n"
+        f"for m in {PUBLIC_PACKAGES!r}:\n"
+        "    pkg = importlib.import_module(m)\n"
+        "    for name in pkg.__all__:\n"
+        "        getattr(pkg, name)\n"
+        "        n += 1\n"
+        "importlib.import_module('vehicle_counting_tpu_torch').CountingPipeline\n"
+        "assert n == 46, n  # 45 re-exported names of the JAX inits, and ops.true_div\n"
         "assert not any(k.split('.')[0] in ('jax', 'vehicle_counting_tpu') for k, v in sys.modules.items()"
         " if v is not None)\n"
         "print('ok')\n"

@@ -9,9 +9,9 @@ import torch
 
 import jax.numpy as jnp
 
-# the JAX ops package re-exports a `letterbox` function under the module's name
+# both ops packages re-export a `letterbox` function under the module's name
 jlb = importlib.import_module("vehicle_counting_tpu.ops.letterbox")
-from vehicle_counting_tpu_torch.ops import letterbox as tlb
+tlb = importlib.import_module("vehicle_counting_tpu_torch.ops.letterbox")
 
 GEOMETRIES = [((72, 128), 128), ((88, 160), 128), ((70, 128), 128), ((720, 1280), 640), ((480, 640), 640)]
 

@@ -11,6 +11,18 @@ first use (`_build.py`); every kernel wrapper runs its plain PyTorch
 version for CPU tensors and launches the kernel for CUDA tensors.
 
     python -m vehicle_counting_tpu_torch.run --input_path <video> --output_path <dir>
+
+Public surface, as the JAX package's:
+
+    from vehicle_counting_tpu_torch import Config, CountingPipeline
 """
 
 __version__ = "0.1.0"
+
+from vehicle_counting_tpu_torch._lazy import lazy_exports  # noqa: E402
+from vehicle_counting_tpu_torch.configs import Config, config_from_dict  # noqa: E402
+
+# CountingPipeline is imported on first use, so that `import
+# vehicle_counting_tpu_torch` pulls in neither cv2 nor the pipeline.
+_, __getattr__ = lazy_exports(__name__, {"pipeline": ("CountingPipeline",)})
+__all__ = ["__version__", "Config", "config_from_dict"]

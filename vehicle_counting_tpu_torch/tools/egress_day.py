@@ -38,6 +38,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import types
 from typing import Dict, List, Optional, Tuple
 
@@ -130,9 +131,40 @@ def step_val(args, workdir: str) -> Dict:
     return out
 
 
+_TUPLE_FIELDS = ("box", "fpoint", "lpoint")  # the rest are integer columns
+
+
+def _as_tuple(value):
+    """A CSV cell such as "[10, 20, 30, 40]" or "(20.0, 30.0)" -> a tuple
+    of floats; None where it does not parse."""
+    text = str(value).strip()
+    if len(text) >= 2 and (text[0], text[-1]) in (("[", "]"), ("(", ")")):
+        text = text[1:-1]
+    try:
+        return tuple(float(x) for x in re.split(r"[,\s]+", text.strip()))
+    except ValueError:
+        return None
+
+
+def _as_int(value):
+    """A CSV cell holding an integer, written "3" or "3.0" -> 3; None where
+    it is not one."""
+    try:
+        f = float(value)
+    except (TypeError, ValueError):
+        return None
+    return int(f) if f.is_integer() else None
+
+
 def csv_parity(ref_csv: str, tpu_csv: str) -> Tuple[bool, Dict]:
-    """Field-by-field diff of two 10-column tracking CSVs; `color` excluded
-    (random per track by design). Returns (ok, detail)."""
+    """Field-by-field diff of two 10-column tracking CSVs by value; `color`
+    excluded (random per track by design). Returns (ok, detail).
+
+    `box`, `fpoint` and `lpoint` compare as tuples of floats, exactly; the
+    integer columns as ints. So "[10, 20, 30, 40]" equals
+    "[10.0, 20.0, 30.0, 40.0]", as the same value written by another CSV
+    writer. A cell that does not parse is a mismatch of its field. (The JAX
+    package's copy compares the cells as strings.)"""
     import pandas as pd
 
     a = pd.read_csv(ref_csv)
@@ -143,14 +175,16 @@ def csv_parity(ref_csv: str, tpu_csv: str) -> Tuple[bool, Dict]:
     orphans = int((m["_merge"] != "both").sum())
     detail: Dict = {"rows_ref": len(a), "rows_tpu": len(b), "orphans": orphans}
     mismatches = {}
+    both = m[m["_merge"] == "both"]
     for col in ("box", "label", "direction", "fpoint", "lpoint", "fframe",
                 "lframe"):
         ca, cb = f"{col}_ref", f"{col}_tpu"
         if ca not in m or cb not in m:
             mismatches[col] = -1
             continue
-        both = m[m["_merge"] == "both"]
-        mismatches[col] = int((both[ca].astype(str) != both[cb].astype(str)).sum())
+        parse = _as_tuple if col in _TUPLE_FIELDS else _as_int
+        pairs = ((parse(x), parse(y)) for x, y in zip(both[ca], both[cb]))
+        mismatches[col] = sum(x is None or y is None or x != y for x, y in pairs)
     detail["mismatches"] = mismatches
     ok = orphans == 0 and all(v == 0 for v in mismatches.values())
     return ok, detail

@@ -4,7 +4,8 @@ Port of `vehicle_counting_tpu/tracking/assignment.py`: row-by-row
 insertion with dual potentials, first-minimum column scans, and scipy's
 transpose rule (insert the smaller side). This is the plain version the
 association kernel K2 (`csrc/cascade.cu`) is held against; it runs eagerly
-with Python control flow.
+with Python control flow. `solve_assignment_sub_fast` and the full-matrix
+`solve_assignment` route CUDA tensors to the assignment kernel K4 instead.
 
 Contract: the [S, S] matrix is COMPACTED -- real rows first in the
 reference's row order, real columns first in its column order, padding
@@ -76,6 +77,38 @@ def solve_assignment_sub(cost: torch.Tensor, nr: int, nc: int) -> torch.Tensor:
     """Assignment over the top-left nr x nc submatrix of an [S, S] matrix,
     matching scipy.optimize.linear_sum_assignment including its ties."""
     return solve_uniform(_insert_rows, cost, nr, nc)
+
+
+def _counts(n, device) -> torch.Tensor:
+    """A row or column count as a [1] int64 tensor on `device`, made there
+    (a Python int is filled in by a kernel, not copied from the host)."""
+    if isinstance(n, torch.Tensor):
+        return n.to(device=device, dtype=torch.int64).reshape(1)
+    return torch.full((1,), int(n), dtype=torch.int64, device=device)
+
+
+def solve_assignment_sub_fast(cost: torch.Tensor, nr, nc) -> torch.Tensor:
+    """`solve_assignment_sub` routed by device: on the card one launch of
+    the assignment kernel K4 (`ops/assignment.py::solve_uniform_batched` on
+    a [1, S, S] view; it raises past S = 1023), on the CPU the plain
+    solver. Equal outputs: row_to_col [S] int64, -1 unassigned."""
+    if cost.device.type == "cpu":
+        return solve_uniform(_insert_rows, cost, nr, nc)
+    from vehicle_counting_tpu_torch.ops.assignment import solve_uniform_batched  # imports this module
+
+    return solve_uniform_batched(cost[None], _counts(nr, cost.device), _counts(nc, cost.device))[0]
+
+
+def solve_assignment(cost: torch.Tensor) -> torch.Tensor:
+    """Full-matrix convenience wrapper: all N rows and all M columns of an
+    [N, M] f32 cost are real. Pads to a square of side max(N, M) with BIG
+    and solves it as `solve_assignment_sub_fast` does (K4 on the card, no
+    host sync). Returns row_to_col [N] int64, -1 for unassigned rows."""
+    n, m = cost.shape
+    s = max(n, m)
+    sq = torch.full((s, s), BIG, dtype=cost.dtype, device=cost.device)
+    sq[:n, :m] = cost
+    return solve_assignment_sub_fast(sq, n, m)[:n]
 
 
 def matching_cost_matrix(cost: torch.Tensor, row_mask: torch.Tensor,
