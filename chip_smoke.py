@@ -5,6 +5,7 @@
     python3 chip_smoke.py --cli-ab   # only the CLI's frames/s, repeated (see cli_ab)
     python3 chip_smoke.py --kernel-ab [--root DIR]   # only the K1, K6, K7 checks of a checkout (see kernel_ab)
     python3 chip_smoke.py --multi-card   # two or more cards: frame-parallel and the fleet across them (see multi_card)
+    python3 chip_smoke.py --k5-parent DIR   # the default run, with the K5 of the checkout at DIR beside this one
 
 Phases, each fatal on failure:
   build     compile the hand-written kernels (csrc/*.cu) with nvcc, one
@@ -41,14 +42,21 @@ Phases, each fatal on failure:
             ms per shape against scipy's on the host;
   K5        fused ReID stage-1 block vs its plain version: bf16 at N=128
             (the embed's launch) and N=3840 (128 frames x 30), with cuDNN's
-            bf16 block timed beside them, batch invariance (bitwise), f32
-            at N=3840; its ptxas registers and shared memory;
+            bf16 block timed beside them, batch invariance (bitwise), the
+            cached packed weights against a fresh pack (bitwise); f32 at
+            N=1, 133 (batch invariance) and 3840 with its device time,
+            bound and cuDNN's f32 block; with `--k5-parent DIR` the K5 of
+            the checkout at DIR: its bf16 output == this one's, bitwise,
+            its f32 kernel timed in turns with this one; each variant's
+            ptxas registers and shared memory;
   embed     the ReID embed at the main path's shapes with K5 off and on;
   K6        layer-1 conv (3x3 s2, 32->64, SiLU) vs its plain version at
             [128, 192, 320, 32] bf16, [3, 64, 128, 32] bf16 (edge tiles) and
             a small f32 shape, with the library call (F.conv2d channels-last
-            + F.silu) timed beside it; the bf16 variant's ptxas registers,
-            shared memory and HGMMA count;
+            + F.silu) timed beside it, and for bf16 the wrapper with its
+            cached packed weights against packing on every call (bitwise,
+            in turns); the bf16 variant's ptxas registers, shared memory
+            and HGMMA count;
   K7        the launch-cost probe kernel vs its plain version, array-equal,
             then the probe itself: us per launch eager and in a captured
             CUDA graph, for the kernel and the torch equivalent, and the
@@ -637,13 +645,15 @@ def check_solve_assignment(dev):
             "shapes": rows}
 
 
-def check_k5(dev):
+def check_k5(dev, parent=None):
     """bf16 rtol 1.6e-2 / atol 1e-2, f32 atol 1e-4: the tolerances of
     tests/test_torch_reid_block.py. bf16 at the embed's launch (N=128, a
     128-crop chunk) and at a 128-frame batch's crops (N=3840), each beside
     the plain version and, for information, cuDNN's bf16 block
-    (models/reid.py::_basic_block, what the embed runs with K5 off); f32
-    (parity mode) at N=3840."""
+    (models/reid.py::_basic_block, what the embed runs with K5 off); the
+    cached packed weights against a fresh pack, bitwise; then the f32 mode
+    (`check_k5_f32`), with the kernel of the checkout at `parent` beside it
+    when one is given."""
     import torch
 
     from vehicle_counting_tpu_torch import _build
@@ -667,8 +677,8 @@ def check_k5(dev):
     p, s = reid_block_params(rng)
     ops = reid_block64_from_jax(p, s, dev)
     wts = (ops["w1"], ops["w2"], ops["a1"], ops["b1"], ops["a2"], ops["b2"])
-    pb, sb = reid_params_from_jax(p, s, dev)
-    pb = cast_conv_weights(pb, torch.bfloat16)
+    pf, sf = reid_params_from_jax(p, s, dev)
+    pb = cast_conv_weights(pf, torch.bfloat16)
     x32 = torch.from_numpy(np.maximum(rng.standard_normal((3840, 64, 25, 25)), 0).astype(np.float32)).to(dev)
     bf16_tol, res = dict(rtol=1.6e-2, atol=1e-2), {}
     for n, reps in ((128, 50), (3840, 5)):
@@ -682,20 +692,21 @@ def check_k5(dev):
         t_k = cuda_ms(lambda: reid_block.reid_block64(x, *wts), reps)
         t_k2 = cuda_ms(lambda: reid_block.reid_block64(x, *wts), reps)
         t_plain2 = cuda_ms(lambda: reid_block.reid_block64_plain(x, *wts), reps)
-        t_cudnn = cuda_ms(lambda: _basic_block(pb, sb, xf, 1, torch.bfloat16), reps)
+        t_cudnn = cuda_ms(lambda: _basic_block(pb, sf, xf, 1, torch.bfloat16), reps)
         dev_k = device_events(lambda: reid_block.reid_block64(x, *wts))
         dev_k5 = sum(ms for name, ms in dev_k if "reid_block_bf16" in name)
         dev_plain = sum(ms for _, ms in device_events(lambda: reid_block.reid_block64_plain(x, *wts)))
         print(f"K5 bfloat16 N={n}: max |diff| {err:.3e} ({bf16_tol}); kernel {t_k:.4f}/{t_k2:.4f} ms, "
               f"plain {t_plain:.4f}/{t_plain2:.4f} ms; cuDNN bf16 block (information) {t_cudnn:.4f} ms; "
               f"device time of one call (torch.profiler): K5 {dev_k5:.4f} ms + the wrapper's other ops "
-              f"{sum(ms for _, ms in dev_k) - dev_k5:.4f} ms, plain {dev_plain:.4f} ms")
+              f"{sum(ms for _, ms in dev_k) - dev_k5:.4f} ms in {len(dev_k) - 1} kernels, plain {dev_plain:.4f} ms")
         # two 3x3 64->64 convs on 25x25: 2 * 625 * 64 * 64 * 9 MACs per crop; x and out once, weights and BN once
         bd = bound(2 * nbytes(x) + nbytes(*wts), 2 * 2 * 625 * 64 * 64 * 9 * n, BF16_FLOPS)
         print(f"K5 bfloat16 N={n}: bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), device time is "
               f"{100 * bd['bound_ms'] / dev_k5:.1f} % of it")
         res[n] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), "cudnn_bf16_ms": t_cudnn,
-                  "device_ms": dev_k5, "plain_device_ms": dev_plain, **bd, "library_ms": t_cudnn}
+                  "device_ms": dev_k5, "wrapper_device_ops": len(dev_k) - 1, "plain_device_ms": dev_plain, **bd,
+                  "library_ms": t_cudnn}
     # N=1, and N=133 where some blocks take two crops; no atomics, no state
     # across crops: a crop's output does not depend on the launch
     for n in (1, 133):
@@ -705,19 +716,140 @@ def check_k5(dev):
     if not torch.equal(got[:4], reid_block.reid_block64(x[:4].contiguous(), *wts)):
         raise AssertionError("K5 bf16: the first 4 crops of an N=133 launch differ from an N=4 launch")
     print("K5 bfloat16 N=1 and N=133 within tolerance; batch-invariant: crops 0-3 of N=133 == N=4, bitwise")
+    # the wrapper's kept pack against one made now, and the kept pack is what the kernel reads
+    x = x32[:128].to(torch.bfloat16)
+    ab = torch.stack(wts[2:]).float().contiguous()
+    fresh = reid_block._launch_kernel(x, reid_block.pack_weights(*wts[:2]), ab)
+    if not torch.equal(reid_block.reid_block64(x, *wts), fresh):
+        raise AssertionError("K5 bf16: output with the cached packed weights differs from a fresh pack's")
+    if reid_block.kernel_weights(*wts[:2], torch.bfloat16) is not reid_block.kernel_weights(*wts[:2], torch.bfloat16):
+        raise AssertionError("K5: the packed weights of unchanged tensors were packed again")
+    t_fresh = cuda_ms(lambda: reid_block._launch_kernel(x, reid_block.pack_weights(*wts[:2]), ab), 50)
+    t_cached = cuda_ms(lambda: reid_block.reid_block64(x, *wts), 50)
+    print(f"K5 bfloat16 N=128: cached pack == fresh pack, bitwise; wrapper {t_cached:.4f} ms with the cache, "
+          f"{t_fresh:.4f} ms packing per call")
+    res[128].update(uncached_ms=t_fresh, cached_ms=t_cached)
+    old = parent_k5(parent) if parent else None
+    if old:  # the bf16 kernel is the parent's: the same bits
+        for n in (128, 3840):
+            x = x32[:n].to(torch.bfloat16)
+            if not torch.equal(old[0](x, *wts[:2], ab), reid_block.reid_block64(x, *wts)):
+                raise AssertionError(f"K5 bf16 N={n}: output differs from the parent checkout's kernel")
+        print("K5 bfloat16 N=128 and N=3840: bitwise equal to the parent checkout's kernel")
+    f32 = check_k5_f32(dev, x32, wts, pf, sf, old)
+    return {**res[128], "n": 128, "n3840": res[3840], "f32": f32}
+
+
+def parent_k5(root):
+    """The K5 kernels of the checkout at `root` as they stood before the f32
+    redesign: built with this checkout's nvcc flags into build/parent_k5/,
+    called through their C interface (x, x zero-padded to 27 x 27 for f32,
+    w1, w2: HWIO f32, or pack_weights' two slabs for bf16, ab, out, N,
+    bf16, stream) as their wrapper called them. -> (launch(x, w1, w2, ab)
+    -> out, its ptxas report)."""
+    import ctypes
+    import subprocess
+
+    import torch
+    import torch.nn.functional as F
+
+    from vehicle_counting_tpu_torch import _build
+    from vehicle_counting_tpu_torch.ops.reid_block import pack_weights
+
+    src = os.path.join(os.path.abspath(root), "vehicle_counting_tpu_torch", "csrc", "reid_block.cu")
+    lib_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent_k5")
+    os.makedirs(lib_dir, exist_ok=True)
+    path = os.path.join(lib_dir, "libreid_block_parent.so")
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", path, src], capture_output=True, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc failed for the parent's {src}:\n{done.stderr}")
+    fn = ctypes.CDLL(path).vct_reid_block64
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+    def launch(x, w1, w2, ab):
+        bf16 = x.dtype == torch.bfloat16
+        xpad = None if bf16 else F.pad(x, (1, 1, 1, 1))
+        wa, wb = pack_weights(w1, w2) if bf16 else (w1, w2)
+        out = torch.empty_like(x)
+        _build.check(fn(x.data_ptr(), None if bf16 else xpad.data_ptr(), wa.data_ptr(), wb.data_ptr(), ab.data_ptr(),
+                        out.data_ptr(), x.shape[0], int(bf16), _build.current_stream(x.device)),
+                     "the parent's reid block kernel")
+        return out
+
+    report = [ln.split("ptxas info    :")[-1].strip() for ln in done.stderr.splitlines() if "Used" in ln]
+    return launch, report
+
+
+def check_k5_f32(dev, x32, wts, pf, sf, parent=None, reps=10):
+    """K5's f32 mode (the trainer's extract_features with the block
+    switched on) against its plain version at atol 1e-4: N = 1, 133
+    (crops 0-3 == an N = 4 launch, bitwise) and 3840. At N = 3840 the
+    wrapper's and the plain version's times in turns, the kernel's device
+    time against its bound, the library call (cuDNN's f32 block,
+    models/reid.py::_basic_block with TF32 off) and, with `parent` (what
+    `parent_k5` returns), the parent's f32 kernel in turns with this one."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.reid import _basic_block
+    from vehicle_counting_tpu_torch.ops import reid_block
+
+    tol = dict(rtol=0, atol=1e-4)
+    for n in (1, 133):
+        x = x32[:n]
+        got = reid_block.reid_block64(x, *wts)
+        torch.testing.assert_close(got, reid_block.reid_block64_plain(x, *wts), **tol)
+    if not torch.equal(got[:4], reid_block.reid_block64(x32[:4], *wts)):
+        raise AssertionError("K5 f32: the first 4 crops of an N=133 launch differ from an N=4 launch")
+    print("K5 float32 N=1 and N=133 within atol 1e-4; batch-invariant: crops 0-3 of N=133 == N=4, bitwise")
     args = (x32, *wts)
     got = reid_block.reid_block64(*args)
     want = reid_block.reid_block64_plain(*args)
     err = float((got - want).abs().max())
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
-    t_plain = cuda_ms(lambda: reid_block.reid_block64_plain(*args), 5)
-    t_k = cuda_ms(lambda: reid_block.reid_block64(*args), 5)
-    t_k2 = cuda_ms(lambda: reid_block.reid_block64(*args), 5)
-    t_plain2 = cuda_ms(lambda: reid_block.reid_block64_plain(*args), 5)
-    print(f"K5 float32 N=3840 (parity mode, CUDA cores): max |diff| {err:.3e} (atol 1e-4); "
-          f"kernel {t_k:.4f}/{t_k2:.4f} ms, plain {t_plain:.4f}/{t_plain2:.4f} ms")
-    return {**res[128], "n": 128, "n3840": res[3840],
-            "f32": {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), "n": 3840}}
+    torch.testing.assert_close(got, want, **tol)
+    t_plain = cuda_ms(lambda: reid_block.reid_block64_plain(*args), reps)
+    t_k = cuda_ms(lambda: reid_block.reid_block64(*args), reps)
+    t_k2 = cuda_ms(lambda: reid_block.reid_block64(*args), reps)
+    t_plain2 = cuda_ms(lambda: reid_block.reid_block64_plain(*args), reps)
+    t_lib = cuda_ms(lambda: _basic_block(pf, sf, x32, 1, torch.float32), reps)
+    lib_err = float((_basic_block(pf, sf, x32, 1, torch.float32) - want).abs().max())
+    t_lib2 = cuda_ms(lambda: _basic_block(pf, sf, x32, 1, torch.float32), reps)
+
+    def k5_device(launch):
+        ev = device_events(launch)
+        k = [ms for name, ms in ev if "reid_block_f32" in name]
+        if len(k) != 1:
+            raise AssertionError(f"K5 f32: {len(k)} reid_block_f32 kernels among one call's device events {ev}")
+        return k[0], sum(ms for _, ms in ev) - k[0], len(ev) - 1
+
+    dev_k, dev_other, n_other = k5_device(lambda: reid_block.reid_block64(*args))
+    dev_lib = sum(ms for _, ms in device_events(lambda: _basic_block(pf, sf, x32, 1, torch.float32)))
+    # x and out once, weights and BN once; two 3x3 64->64 convs on 25x25 per crop, f32 FMA on the CUDA cores
+    bd = bound(2 * nbytes(x32) + nbytes(*wts), 2 * 2 * 625 * 64 * 64 * 9 * x32.shape[0], F32_FLOPS)
+    print(f"K5 float32 N=3840: max |diff| {err:.3e} (atol 1e-4); wrapper {t_k:.4f}/{t_k2:.4f} ms, plain "
+          f"{t_plain:.4f}/{t_plain2:.4f} ms, library (cuDNN f32 block, TF32 off) {t_lib:.4f}/{t_lib2:.4f} ms "
+          f"(max |diff| vs plain {lib_err:.3e}); device time (torch.profiler): K5 {dev_k:.4f} ms + the wrapper's "
+          f"other ops {dev_other:.4f} ms in {n_other} kernels, library {dev_lib:.4f} ms; bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}), device time is {100 * bd['bound_ms'] / dev_k:.1f} % of it")
+    out = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), "n": 3840, "device_ms": dev_k,
+           "wrapper_device_ops": n_other, **bd, "bound_share": bd["bound_ms"] / dev_k, "library_ms": min(t_lib, t_lib2),
+           "library_device_ms": dev_lib}
+    if parent:
+        launch, report = parent
+        w1, w2, ab = wts[0], wts[1], torch.stack(wts[2:]).float().contiguous()
+        old = launch(x32, w1, w2, ab)
+        torch.testing.assert_close(old, want, **tol)
+        t, d = {"parent": [], "change": []}, {"parent": [], "change": []}
+        runs = {"parent": lambda: launch(x32, w1, w2, ab), "change": lambda: reid_block.reid_block64(*args)}
+        for who in ("parent", "change", "change", "parent"):
+            t[who].append(cuda_ms(runs[who], reps))
+            d[who].append(k5_device(runs[who])[0])
+        print(f"K5 float32 N=3840, the parent's kernel (ptxas {report}) against this checkout's, in "
+              f"turns (parent, change, change, parent): wrapper ms parent {t['parent']}, change {t['change']}; "
+              f"device ms parent {d['parent']}, change {d['change']}")
+        out["parent"] = {"ms": t["parent"], "device_ms": d["parent"], "change_ms": t["change"],
+                         "change_device_ms": d["change"], "ptxas": report}
+    return out
 
 
 def embed_ab(dev, n_frames=128, per_frame=30):
@@ -769,53 +901,79 @@ def embed_ab(dev, n_frames=128, per_frame=30):
 def device_events(fn):
     """(name, ms) of each kernel and copy that one call of fn runs on the
     card: a warm-up call, then one call under utils/profiling.trace, read
-    back from the trace file. The call sits in a named region, and a
-    device event counts when the host call that launched it (its
-    correlation id) lies in the region, or when it starts inside the
-    region. The profiler maps the device's clock onto the host's and the
-    mapping drifts as the process runs: kernels come out tens of
-    milliseconds before their launch (warned "GPU op timestamp <
-    runtime timestamp" by the profiler), and it drops device events that
-    come out before the trace began. So the region opens only after a
-    pause inside the trace; a trace that still shows no device event of
-    the region is taken again with a pause twice as long, and the fifth
-    empty one raises, with what the traces held."""
+    back from the trace file. The call sits in a named region between two
+    launches of a marker kernel. A device event counts when the host call
+    that launched it (its correlation id) lies in the region, or when it
+    runs between the two markers on the device's clock: the kernels that
+    the port launches through ctypes may show no host call, and the
+    profiler maps the device's clock onto the host's with a drift that
+    grows as the process runs (kernels come out tens of milliseconds
+    before their launch, warned "GPU op timestamp < runtime timestamp"),
+    so a host-clock window would miss them. It also drops device events
+    that come out before the trace began or after it ended (the drift has
+    gone either way): the region sits between two pauses inside the
+    trace, and a trace that lost either marker's device event is taken
+    again with pauses twice as long; the fifth raises, with what the
+    traces held. The markers' events are not returned."""
     import torch
 
-    from vehicle_counting_tpu_torch.tools.profile_summary import DEVICE_CATS
     from vehicle_counting_tpu_torch.utils.profiling import trace
 
     fn()
+    marker = torch.zeros(8, device="cuda")
     torch.cuda.synchronize()
     seen = []
     for pause in (0.25, 0.5, 1.0, 2.0, 4.0):
         with tempfile.TemporaryDirectory() as tmp:
             with trace(tmp) as t:
-                torch.zeros(8, device="cuda").add_(1.0)
+                marker.add_(1.0)
                 torch.cuda.synchronize()
                 time.sleep(pause)
                 with torch.profiler.record_function("vct_device_events_region"):
+                    marker.add_(1.0)  # opens the region on the device's clock
                     fn()
+                    marker.add_(1.0)  # and closes it
                     torch.cuda.synchronize()
+                time.sleep(pause)
             with open(t["path"]) as f:
                 data = json.load(f)
         raw = [e for e in (data["traceEvents"] if isinstance(data, dict) else data) if e.get("ph") == "X"]
-        region = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in raw
-                  if e.get("name") == "vct_device_events_region"]
-        if not region:
-            raise AssertionError("device_events: the trace holds no region marker")
-        start, stop = min(r[0] for r in region), max(r[1] for r in region)
-        launched = {e.get("args", {}).get("correlation") for e in raw
-                    if e.get("cat") in ("cuda_runtime", "cuda_driver") and start <= float(e["ts"]) <= stop}
-        launched.discard(None)
-        device = sorted((e for e in raw if e.get("cat") in DEVICE_CATS), key=lambda e: float(e["ts"]))
-        events = [(str(e.get("name", "")), float(e.get("dur", 0.0)) / 1e3) for e in device
-                  if e.get("args", {}).get("correlation") in launched or start <= float(e["ts"]) <= stop]
+        events, why = _region_events(raw)
         if events:
             return events
-        seen.append(f"pause {pause} s: {len(device)} device events, {len(launched)} launches in the region, first "
-                    f"device event at {float(device[0]['ts']) - start if device else None} us from the region's start")
-    raise AssertionError(f"device_events: five traces in a row show no device event of the region: {seen}")
+        seen.append(f"pause {pause} s: {why}")
+    raise AssertionError(f"device_events: five traces in a row lost the region's device events: {seen}")
+
+
+def _region_events(raw):
+    """device_events' reading of one trace's complete events: ([(name,
+    ms)], None), or (None, what was missing). The markers are the region's
+    first and last runtime kernel launches (PyTorch's; a ctypes launch
+    shows as a cuLaunchKernel call, if at all)."""
+    from vehicle_counting_tpu_torch.tools.profile_summary import DEVICE_CATS
+
+    region = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in raw
+              if e.get("name") == "vct_device_events_region"]
+    if not region:
+        raise AssertionError("device_events: the trace holds no region marker")
+    start, stop = min(r[0] for r in region), max(r[1] for r in region)
+    calls = sorted((e for e in raw if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and start <= float(e["ts"]) <= stop and e.get("args", {}).get("correlation") is not None),
+                   key=lambda e: float(e["ts"]))
+    launched = {e["args"]["correlation"] for e in calls}
+    launches = [e["args"]["correlation"] for e in calls if str(e.get("name", "")).startswith("cudaLaunchKernel")]
+    markers = {launches[0], launches[-1]} if launches else set()
+    device = sorted((e for e in raw if e.get("cat") in DEVICE_CATS), key=lambda e: float(e["ts"]))
+    ends = {e["args"]["correlation"]: (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in device
+            if e.get("args", {}).get("correlation") in markers}
+    if len(launches) < 2 or len(ends) < 2:
+        return None, (f"{len(device)} device events, {len(launched)} calls and {len(launches)} launches in the "
+                      f"region, {len(ends)} of the 2 markers' device events kept")
+    lo, hi = ends[launches[0]][0], ends[launches[-1]][1]
+    events = [(str(e.get("name", "")), float(e.get("dur", 0.0)) / 1e3) for e in device
+              if e.get("args", {}).get("correlation") not in markers
+              and (e.get("args", {}).get("correlation") in launched or lo <= float(e["ts"]) <= hi)]
+    return (events, None) if events else (None, f"no device event between the markers ({len(device)} in the trace)")
 
 
 def check_k6(dev):
@@ -893,6 +1051,20 @@ def check_k6(dev):
               f"{moved / sum(dev_k) / 1e9:.3f} TB/s of {HBM_BPS / 1e12} ; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
         res[key] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": min(t_plain, t_plain2), **bd, "library_ms": t_lib,
                     "device_ms": sum(dev_k), "shape": list(shape)}
+        if dt == torch.bfloat16:  # the wrapper keeps its packed weights; packing on every call, as before the cache
+            bias = b.float().contiguous()
+
+            def uncached():
+                return conv_s2._launch_kernel(xt, conv_s2.pack_conv1_weights(w), bias)
+
+            if not torch.equal(uncached(), conv_s2.conv1_s2_silu(xt, w, b)):
+                raise AssertionError(f"K6 {list(shape)}: output with the cached packed weights differs from a fresh pack's")
+            t_un = [cuda_ms(uncached, n)]
+            t_ca = [cuda_ms(lambda: conv_s2.conv1_s2_silu(xt, w, b), n) for _ in range(2)]
+            t_un.append(cuda_ms(uncached, n))
+            print(f"K6 {name} {list(shape)}: cached pack == fresh pack, bitwise; wrapper in turns (packing per call, "
+                  f"cached, cached, packing per call): {t_un[0]:.4f}, {t_ca[0]:.4f}, {t_ca[1]:.4f}, {t_un[1]:.4f} ms")
+            res[key].update(uncached_ms=min(t_un), cached_ms=min(t_ca))
         if shape[0] == 128:
             # what this card's memory gives a plain copy that moves as many bytes (half read, half written)
             src = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
@@ -2681,6 +2853,8 @@ def reid_train_throughput(dev, b=64, nc=751, steps=60, warm=5, b_feat=512):
     finally:
         reid_mod.FORCE_REID_BLOCK_KERNEL = prev
     err = float((fused - plain).abs().max())
+    print(f"extract_features B={b_feat}: cuDNN {feat_ms:.4f} ms, through K5 f32 {k5_ms:.4f} ms ({k5} K5 launches per "
+          f"call, max |diff| {err:.3e} against cuDNN's)")
     if k5 != 2:
         raise AssertionError(f"extract_features with the fused block launched K5 {k5} times, want 2 (stage 1)")
     if err > 1e-4:
@@ -3329,6 +3503,12 @@ def multi_card(argv) -> int:
     return 0
 
 
+def _flag_value(flag):
+    """The value after `flag` on the command line, or None."""
+    argv = sys.argv[1:]
+    return argv[argv.index(flag) + 1] if flag in argv[:-1] else None
+
+
 def main() -> int:
     if "--multi-card" in sys.argv[1:]:
         return multi_card(sys.argv[1:])
@@ -3381,7 +3561,7 @@ def main() -> int:
     phase("K4 through solve_assignment: full [N, M] costs, one launch per call", card)
     sa = check_solve_assignment(dev)
     phase("K5 fused ReID stage-1 block", card)
-    k5 = check_k5(dev)
+    k5 = check_k5(dev, _flag_value("--k5-parent"))
     phase("embed A/B: ReID embed with K5 off and on", card)
     emb = embed_ab(dev)
     phase("K6 layer-1 conv", card)

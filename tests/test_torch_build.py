@@ -75,7 +75,7 @@ def test_entry_raises_on_a_missing_symbol():
 
 
 @pytest.mark.parametrize("module, n_args", [(crops, 18), (conv_s2, 9), (cascade, 21), (assignment, 6),
-                                            (reid_block, 9), (noop, 4)])
+                                            (reid_block, 7), (noop, 4)])
 def test_wrappers_declare_their_argtypes_once(module, n_args):
     """Every wrapper hands `_build.entry` one module-level list: pointers
     and the stream as c_void_p (an untyped Python int would be cut to 32

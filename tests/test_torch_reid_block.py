@@ -3,6 +3,9 @@ against the TPU kernel in interpret mode, and the embedding with the block
 switched on against JAX's, on the same numpy weights (carried across by
 models/convert.py)."""
 
+import copy
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -12,9 +15,13 @@ import jax.numpy as jnp
 
 import vehicle_counting_tpu.models.reid as jreid
 from vehicle_counting_tpu.ops.pallas.reid_block import reid_block64_pallas
+from vehicle_counting_tpu_torch import _build
+from vehicle_counting_tpu_torch.benchmarks.micro import reid_block_variants
 from vehicle_counting_tpu_torch.models import reid as treid
 from vehicle_counting_tpu_torch.models.convert import reid_block64_from_jax, reid_params_from_jax
+from vehicle_counting_tpu_torch.ops import conv_s2 as tcs
 from vehicle_counting_tpu_torch.ops import reid_block as trb
+from vehicle_counting_tpu_torch.ops import weight_cache
 from vehicle_counting_tpu_torch.testing import reid_block_params
 
 # f32: conv summation order differs (XLA:CPU patch matmul vs oneDNN);
@@ -76,6 +83,30 @@ def test_reid_forward_with_block_matches_jax(reid_weights, monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
+def test_reid_forward_with_block_after_in_place_update_matches_jax(reid_weights, monkeypatch):
+    """The trainer updates the conv weights in place between calls: the
+    block's kept HWIO weights (and the card's packs made from them) follow
+    the update. One call fills the caches, a stage-1 weight changes in
+    place, and the next call equals JAX's on the changed weights."""
+    jp, js, (tp, ts) = reid_weights
+    tp = copy.deepcopy(tp)  # the fixture's tensors stay as they are
+    crops = torch.from_numpy(np.random.default_rng(36).standard_normal((4, 50, 50, 3)).astype(np.float32))
+    monkeypatch.setattr(jreid, "FORCE_PALLAS_REID_BLOCK", True)
+    monkeypatch.setattr(treid, "FORCE_REID_BLOCK_KERNEL", True)
+    before = treid.reid_forward(tp, ts, crops)
+    delta = (np.random.default_rng(37).standard_normal((3, 3, 64, 64)) * 0.05).astype(np.float32)  # HWIO
+    w = tp["layer1_0"]["conv1"]["w"]
+    version = w._version
+    w.add_(torch.from_numpy(delta).permute(3, 2, 0, 1))  # OIHW, in place
+    assert w._version > version
+    jl = jp["layer1_0"]
+    jp = {**jp, "layer1_0": {**jl, "conv1": {**jl["conv1"], "w": jl["conv1"]["w"] + delta}}}
+    want, _ = jreid.reid_forward(jp, js, jnp.asarray(crops.numpy()), train=False, reid=True)
+    got = treid.reid_forward(tp, ts, crops)
+    assert not np.allclose(got.numpy(), before.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("switch,env,expect", [
     (None, None, 0), (None, "1", 2), (True, None, 2), (False, "1", 0), (True, "0", 0),
 ])
@@ -110,6 +141,132 @@ def test_pack_weights_is_a_permutation_of_hwio():
     assert torch.equal(hwio[0], w1.to(torch.bfloat16)) and torch.equal(hwio[1], w2.to(torch.bfloat16))
 
 
+def test_pack_weights_f32_is_a_permutation_of_hwio():
+    """The f32 kernel's weights: [conv, ci, tap, co], every 8 input channels
+    one contiguous chunk of all 9 taps; undo the transpose and compare bit
+    for bit."""
+    rng = np.random.default_rng(38)
+    w1, w2 = (torch.from_numpy(rng.standard_normal((3, 3, 64, 64)).astype(np.float32)) for _ in range(2))
+    packed = trb.pack_weights_f32(w1, w2)
+    assert packed.shape == (2, 64, 9, 64) and packed.dtype == torch.float32 and packed.is_contiguous()
+    hwio = packed.reshape(2, 64, 3, 3, 64).permute(0, 2, 3, 1, 4)  # [conv, kh, kw, ci, co]
+    assert torch.equal(hwio[0], w1) and torch.equal(hwio[1], w2)
+    chunk = packed.reshape(-1)[3 * 8 * 9 * 64:][:8 * 9 * 64].reshape(8, 9, 64)  # conv1's ci 24..31, as one copy
+    assert torch.equal(chunk, w1.reshape(9, 64, 64)[:, 24:32].transpose(0, 1))
+
+
+def _hwio_weights(seed, shape):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shape]
+
+
+# (source shapes, the wrapper's kept pack, a fresh pack): K5 bf16, K5 f32, K6 bf16
+PACKS = {
+    "reid_block_bf16": ([(3, 3, 64, 64)] * 2, lambda ws: trb.kernel_weights(*ws, torch.bfloat16), trb.pack_weights),
+    "reid_block_f32": ([(3, 3, 64, 64)] * 2, lambda ws: trb.kernel_weights(*ws, torch.float32), trb.pack_weights_f32),
+    "conv_s2_bf16": ([(3, 3, 32, 64)], lambda ws: tcs.kernel_weights(*ws), tcs.pack_conv1_weights),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(PACKS))
+def test_weight_cache_hits_the_same_tensors(kind):
+    shapes, kept, fresh = PACKS[kind]
+    ws = _hwio_weights(40, shapes)
+    first = kept(ws)
+    assert kept(ws) is first
+    assert torch.equal(first, fresh(*ws))
+
+
+@pytest.mark.parametrize("kind", sorted(PACKS))
+def test_weight_cache_misses_new_tensors(kind):
+    """Equal values in other tensors are other keys: the cache never keys
+    on contents or addresses."""
+    shapes, kept, fresh = PACKS[kind]
+    ws = _hwio_weights(41, shapes)
+    first = kept(ws)
+    copies = [w.clone() for w in ws]
+    second = kept(copies)
+    assert second is not first and torch.equal(second, first)
+
+
+@pytest.mark.parametrize("kind", sorted(PACKS))
+def test_weight_cache_never_keys_on_the_address(kind):
+    """A new tensor at a dead one's address, as PyTorch's caching allocator
+    hands out, with other values and the same version count: here the same
+    numpy memory, rewritten while no tensor views it."""
+    shapes, kept, fresh = PACKS[kind]
+    arrays = [w.numpy() for w in _hwio_weights(44, shapes)]
+    ws = [torch.from_numpy(a) for a in arrays]
+    first, ptrs = kept(ws).clone(), [w.data_ptr() for w in ws]
+    del ws
+    gc.collect()
+    for a in arrays:
+        a += 1.0
+    ws = [torch.from_numpy(a) for a in arrays]
+    assert [w.data_ptr() for w in ws] == ptrs
+    got = kept(ws)
+    assert torch.equal(got, fresh(*ws)) and not torch.equal(got, first)
+
+
+@pytest.mark.parametrize("kind", sorted(PACKS))
+def test_weight_cache_follows_in_place_updates(kind):
+    """w.add_(1) moves w's version: the next call packs the new values."""
+    shapes, kept, fresh = PACKS[kind]
+    ws = _hwio_weights(42, shapes)
+    first = kept(ws).clone()
+    ws[0].add_(1)
+    second = kept(ws)
+    assert torch.equal(second, fresh(*ws)) and not torch.equal(second, first)
+    ws[-1][0, 0, 0, 0] = 7.0  # an indexed write moves it too
+    assert torch.equal(kept(ws), fresh(*ws))
+
+
+@pytest.mark.parametrize("kind", sorted(PACKS))
+def test_weight_cache_drops_dead_tensors(kind):
+    shapes, kept, fresh = PACKS[kind]
+    ws = _hwio_weights(43, shapes)
+    gc.collect()  # only this test's tensors die below
+    before = weight_cache.size()
+    kept(ws)
+    assert weight_cache.size() == before + 1
+    del ws
+    gc.collect()
+    assert weight_cache.size() == before
+
+
+def test_weight_cache_is_bounded():
+    keep = [torch.zeros(2) for _ in range(weight_cache.MAX_ENTRIES + 5)]
+    for i, t in enumerate(keep):
+        weight_cache.cached("bounded", (t,), lambda i=i: torch.full((1,), float(i)))
+    assert weight_cache.size() <= weight_cache.MAX_ENTRIES
+    made = []
+    weight_cache.cached("bounded", (keep[0],), lambda: made.append(1) or torch.zeros(1))
+    assert made  # the oldest entry went first
+
+
+def test_weight_cache_never_keeps_inference_tensors():
+    """An inference tensor has no version counter to key on: packed anew."""
+    with torch.inference_mode():
+        w = torch.ones(4)
+    made = []
+    for _ in range(2):
+        weight_cache.cached("inference", (w,), lambda: made.append(1) or w * 2)
+    assert len(made) == 2
+
+
+def test_kernel_variants_still_fit_the_source():
+    """The variant benchmark's edits each match the f32 kernel's source
+    once, so its sweep runs against the kernel as committed."""
+    res = reid_block_variants.main("cpu")
+    assert res["variants"] == sorted(reid_block_variants.VARIANTS)
+    with open(f"{_build.CSRC_DIR}/reid_block.cu") as f:
+        committed = f.read()
+    assert all(src != committed for src in reid_block_variants.variant_sources().values())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            reid_block_variants.main("cuda")
+
+
 def test_kernel_rejects_other_shapes():
     w = torch.zeros((3, 3, 64, 64))
     v = torch.zeros(64)
@@ -118,12 +275,13 @@ def test_kernel_rejects_other_shapes():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 128, 133])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,n", [(d, n) for d in ("float32", "bfloat16") for n in (1, 128, 133)]
+                         + [("float32", 3840)])
 def test_kernel_matches_plain_on_card(dtype, n):
-    """N = 128 is the embed's launch; N = 133 leaves some SMs two crops.
-    The first 4 crops of that launch equal a launch of those 4 alone, bit
-    for bit: the kernel has no atomics and no state across crops."""
+    """N = 128 is the embed's launch; N = 133 leaves some SMs two crops;
+    f32 at N = 3840 is a 128-frame batch's crops, 29-30 per SM. The first
+    4 crops of a launch equal a launch of those 4 alone, bit for bit: the
+    kernel has no atomics and no state across crops."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the block kernel is CUDA C++ with no CPU mode")
     torch.backends.cudnn.allow_tf32 = False  # the plain version's f32 convs

@@ -52,25 +52,56 @@
 // consecutive pixels of a channel in a warp's store), and the transpose
 // and slab reload between crops.
 //
-// f32 (parity mode; the card's embed never sends f32 here): a direct
-// convolution on the CUDA cores. Only the h1 tile fits in shared memory in
-// f32 (186,624 B), so x is read from a zero-padded copy in global memory.
-// 16 warps: warp w owns output channels 8 (w % 8) .. +8 and a 32-pixel lane
-// slice; each thread accumulates 5 pixels x 8 channels per pass.
+// f32 (parity mode; the card's embed never sends f32 here, the trainer's
+// extract_features does): FFMA on the CUDA cores, f32 products, f32 sums.
+// The same 46 M MACs per crop are 5.28 ms at the 67 TFLOP/s f32 peak for
+// N = 3840, against 1.23 GB (0.37 ms) of x and out: the bound is the FMA
+// pipes, one warp FFMA per clock per SM quarter, so every other
+// instruction the SM issues is time taken from them.
+// Design: one persistent block of 8 warps per SM walks the crops.
+// - One tile in shared memory holds a whole crop, zero-padded: 64 planes of
+//   27 rows x 28 floats (row stride 28: a warp's window loads hit at most
+//   2 lanes per bank; 27 gave 5), a plane's bottom pad row shared with the
+//   next plane's top, 186,480 B. It holds x for conv1, then h1 (written
+//   over x once every warp is done reading it: h1 never leaves the SM),
+//   then conv2's acc * a2 + b2. f32 x and h1 do not both fit; a 2-block
+//   cluster or an L2 scratch for h1 is not needed, since x is not needed
+//   after conv1 except as the residual, which is read from global memory.
+// - The weights are streamed: [8 ci][9 taps][64 co] chunks (18,432 B, 8
+//   per conv, packed by ops/reid_block.py::pack_weights_f32) by one bulk
+//   async copy each into a ring of two stages on mbarriers, refilled two
+//   chunks ahead, across the two convs and across crops: a copy lands
+//   while the previous chunk's FMAs run.
+// - Thread micro-tile: two 5-pixel row segments x 16 output channels, 160
+//   accumulators in registers for the whole conv (the crop's 125 segments
+//   over 64 slots x 4 channel groups = 256 threads; 3 slots have one).
+//   Per input channel and tap row, 7 window floats per segment (scalar
+//   shared loads) serve the 3 taps of that row; per tap, 16 weights by 4
+//   16-byte loads that are one broadcast for the warp (a warp shares its
+//   channel group) and serve both segments. 1,440 FFMA to 78 loads per
+//   input channel: ~95 % of the issued instructions are FFMA, and shared
+//   memory's 128 B per clock to registers (a warp's 16-byte load takes 4
+//   clocks of it, broadcast or not) is 60 % used where one segment per
+//   thread used 95 %. What is left between this and the FMA peak (the
+//   kernel issues ~2.95 instructions per clock of the SM's 4) did not
+//   move with the tiling; the FMA loop's order moved it by 2-7 %
+//   (operand reuse and register banks), and this order was the fastest.
+// - Epilogue: acc * a2 + b2 goes into the tile; one coalesced pass over
+//   the crop then reads the residual x (16-byte loads, prefetched into L2
+//   during conv2), stores out = relu(. + x) with 16-byte stores, and writes
+//   the next crop's x into the tile in the same pass, the one moment the
+//   tile is free.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "conv_util.cuh"
 #include "wgmma_util.cuh"
 
 namespace {
 
 constexpr int S = 25;        // crop side
 constexpr int P = S * S;     // 625 pixels
-constexpr int SP = S + 2;    // padded side
-constexpr int TP = SP * SP;  // 729 padded pixels
 constexpr int C = 64;
 
 // ---------------------------------------------------------------- bf16
@@ -291,148 +322,272 @@ __global__ void __launch_bounds__(NT, 1)
 
 // ----------------------------------------------------------------- f32
 
-namespace direct {
+namespace ffma {
 
-using vct_conv::load8;
+constexpr int PX = 5;               // pixels of a segment: a fifth of one row
+constexpr int PG = P / PX;          // 125 segments
+constexpr int SEG = 2;              // segments per thread (1: 16 warps, 3 % slower)
+constexpr int SLOTS = 128 / SEG;    // threads per channel group: segment j of thread t is t + SLOTS j
+constexpr int NT = 4 * SLOTS;       // 4 channel groups
+constexpr int CO = 16;              // output channels per thread
+constexpr int RS = 28;              // padded row stride in floats: window loads at most 2-way bank conflicts (27: 5-way)
+constexpr int PS = 26 * RS;         // plane stride: a plane's bottom pad row is the next plane's top one
+constexpr int TILE = C * PS + RS;   // floats: 64 planes, the last one's bottom pad row
+constexpr int CK = 8;               // input channels per weight chunk
+constexpr int CHUNK = CK * 9 * C;   // floats of one chunk: [8 ci][9 taps][64 co], 18,432 B
+constexpr int NCHUNK = C / CK;      // chunks per conv
+constexpr int V4 = C * P / 4;       // 16-byte pieces of one crop
+constexpr int OFF_W = TILE * 4;     // bytes: tile | ring of two chunks | a, b | two mbarriers
+constexpr int OFF_AB = OFF_W + 2 * CHUNK * 4;
+constexpr int OFF_BAR = OFF_AB + 4 * C * 4;
+constexpr int SMEM = OFF_BAR + 2 * 8;
 
-constexpr int NT = 512;      // threads: 8 channel groups x 2 pixel slices x 32 lanes
-constexpr int PX = 5;        // pixels per thread per pass
-constexpr int PSTRIDE = 64;  // pixel stride between a thread's pixels
-constexpr int NPASS = 2;     // 2 x 5 x 64 = 640 >= 625
-constexpr int SMEM = C * TP * 4;
+static_assert(OFF_W % 16 == 0 && (CHUNK * 4) % 16 == 0, "bulk copies move 16-byte units");
+static_assert(SMEM <= 232448, "one block per SM");
+static_assert(SLOTS * SEG >= PG && SLOTS % 32 == 0, "a channel group's warps cover the segments");
 
-// acc[j][k] = sum over taps and input channels of src * w, for this
-// thread's pixels (padded window origins base[j]) and channels co0 + k
-__device__ __forceinline__ void conv3x3(const float* src, const float* __restrict__ w, const int base[PX], int co0,
-                                        float acc[PX][8]) {
+using namespace vct_wgmma;
+
+// tile offset of pixel p of channel ci: padded row y + 1, column x + 1
+__device__ __forceinline__ int at(int ci, int p) {
+  const int y = p / S;
+  return ci * PS + (y + 1) * RS + (p - y * S) + 1;
+}
+
+// the tile's interior <- crop xn (NCHW), 16-byte coalesced loads
+__device__ __forceinline__ void load_crop(float* tile, const float* __restrict__ xn, int tid) {
+  const float4* x4 = reinterpret_cast<const float4*>(xn);
+  for (int k0 = tid; k0 < V4; k0 += 4 * NT) {
+    float4 v[4];
 #pragma unroll
-  for (int j = 0; j < PX; ++j)
+    for (int u = 0; u < 4; ++u) v[u] = __ldg(x4 + min(k0 + u * NT, V4 - 1));
 #pragma unroll
-    for (int k = 0; k < 8; ++k) acc[j][k] = 0.0f;
-  for (int tap = 0; tap < 9; ++tap) {
-    const float* sp = src + (tap / 3) * SP + (tap % 3);
-    const float* wp = w + tap * C * C + co0;
-#pragma unroll 2
-    for (int ci = 0; ci < C; ++ci) {
-      float wv[8];
-      load8(wp + ci * C, wv);
-      float xv[PX];
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + u * NT;
+      if (k >= V4) break;
+      const float e[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
 #pragma unroll
-      for (int j = 0; j < PX; ++j) xv[j] = sp[ci * TP + base[j]];
+      for (int i = 0; i < 4; ++i) {
+        const int q = 4 * k + i, ci = q / P;
+        tile[at(ci, q - ci * P)] = e[i];
+      }
+    }
+  }
+}
+
+// out = relu(tile + x) over crop n (the tile holds acc2 * a2 + b2), and in
+// the same pass the tile's interior <- the next crop (xnext null: none)
+__device__ __forceinline__ void finish_crop(float* tile, const float* __restrict__ xn, const float* __restrict__ xnext,
+                                            float* __restrict__ on, int tid) {
+  const float4* r4 = reinterpret_cast<const float4*>(xn);
+  const float4* n4 = reinterpret_cast<const float4*>(xnext);
+  float4* o4 = reinterpret_cast<float4*>(on);
+  for (int k0 = tid; k0 < V4; k0 += 4 * NT) {
+    float4 res[4], nx[4];
 #pragma unroll
-      for (int j = 0; j < PX; ++j)
+    for (int u = 0; u < 4; ++u) {
+      const int k = min(k0 + u * NT, V4 - 1);
+      res[u] = __ldg(r4 + k);
+      nx[u] = xnext ? __ldg(n4 + k) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
 #pragma unroll
-        for (int k = 0; k < 8; ++k) acc[j][k] = fmaf(xv[j], wv[k], acc[j][k]);
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + u * NT;
+      if (k >= V4) break;
+      const float r[4] = {res[u].x, res[u].y, res[u].z, res[u].w};
+      const float nv[4] = {nx[u].x, nx[u].y, nx[u].z, nx[u].w};
+      float o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = 4 * k + i, ci = q / P, t = at(ci, q - ci * P);
+        o[i] = fmaxf(tile[t] + r[i], 0.0f);
+        if (xnext) tile[t] = nv[i];
+      }
+      o4[k] = make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void prefetch_l2(const float* p, int tid) {
+  const char* b = reinterpret_cast<const char*>(p);
+  for (int off = tid * 128; off < C * P * 4; off += NT * 128) asm volatile("prefetch.global.L2 [%0];" ::"l"(b + off));
+}
+
+// acc = conv3x3 of the tile with one conv's weights, streamed through the
+// ring: chunk `it` (counted over the whole launch) sits in stage it % 2.
+// Each chunk ends with a barrier, after which thread 0 refills the stage
+// with chunk it + 2 if this block will use it.
+__device__ __forceinline__ void conv(const float* tile, const float* ring, uint32_t ring_a, uint32_t bar,
+                                     const float* __restrict__ w, uint32_t& it, uint32_t total, const int (&win0)[SEG],
+                                     int g, int tid, float (&acc)[SEG][PX][CO]) {
+#pragma unroll
+  for (int s = 0; s < SEG; ++s)
+#pragma unroll
+    for (int j = 0; j < PX; ++j)
+#pragma unroll
+      for (int k = 0; k < CO; ++k) acc[s][j][k] = 0.0f;
+#pragma unroll 1
+  for (int cc = 0; cc < NCHUNK; ++cc, ++it) {
+    const uint32_t s = it & 1;
+    mbar_wait(bar + 8 * s, (it >> 1) & 1);
+    const float* xs = tile + cc * CK * PS;
+    const float* ws = ring + s * CHUNK + CO * g;
+#pragma unroll 1
+    for (int ci = 0; ci < CK; ++ci, xs += PS, ws += 9 * C) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        float v[SEG][PX + 2];  // per segment: input row r + dy - 1, columns 5c - 1 .. 5c + 5
+#pragma unroll
+        for (int s = 0; s < SEG; ++s)
+#pragma unroll
+          for (int j = 0; j < PX + 2; ++j) v[s][j] = xs[win0[s] + dy * RS + j];
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float4* wp = reinterpret_cast<const float4*>(ws + (dy * 3 + dx) * C);
+          float wv[CO];
+#pragma unroll
+          for (int q = 0; q < CO / 4; ++q) {
+            const float4 t = wp[q];
+            wv[4 * q] = t.x; wv[4 * q + 1] = t.y; wv[4 * q + 2] = t.z; wv[4 * q + 3] = t.w;
+          }
+#pragma unroll
+          for (int s = 0; s < SEG; ++s)
+#pragma unroll
+            for (int j = 0; j < PX; ++j)
+#pragma unroll
+              for (int k = 0; k < CO; ++k) acc[s][j][k] = fmaf(v[s][j + dx], wv[k], acc[s][j][k]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage (and, after the last chunk, with the tile)
+    if (tid == 0 && it + 2 < total) {
+      const uint32_t nxt = it + 2;
+      mbar_expect_tx(bar + 8 * s, CHUNK * 4);
+      bulk_load(ring_a + s * CHUNK * 4, w + ((nxt / NCHUNK) % 2 * NCHUNK + nxt % NCHUNK) * CHUNK, CHUNK * 4, bar + 8 * s);
     }
   }
 }
 
 __global__ void __launch_bounds__(NT, 1)
-    reid_block_f32(const float* __restrict__ x, const float* __restrict__ xpad, const float* __restrict__ w1,
-                   const float* __restrict__ w2, const float* __restrict__ ab, float* __restrict__ out, int N) {
+    reid_block_f32(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ ab,
+                   float* __restrict__ out, int N) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* hs = reinterpret_cast<float*>(smem);  // [C][TP] padded h1
-  const int t = threadIdx.x;
-  const int warp = t >> 5;
-  const int co0 = (warp & 7) * 8;
-  const int pix0 = (warp >> 3) * 32 + (t & 31);
+  float* tile = reinterpret_cast<float*>(smem);
+  const float* ring = reinterpret_cast<const float*>(smem + OFF_W);
+  float* abs_ = reinterpret_cast<float*>(smem + OFF_AB);
+  const uint32_t ring_a = smem_u32(smem + OFF_W), bar = smem_u32(smem + OFF_BAR);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = warp & 3;                        // output channels 16 g .. 16 g + 15
+  const int t = (warp >> 2) * 32 + (tid & 31);  // slot in the channel group
+  int win0[SEG];   // per segment (row r, columns 5 c .. 5 c + 4): padded row r, column 5 c (input row r - 1, x 5 c - 1)
+  bool live[SEG];  // slots past the crop compute segment 124 and store nothing
+#pragma unroll
+  for (int s = 0; s < SEG; ++s) {
+    live[s] = t + SLOTS * s < PG;
+    const int q = live[s] ? t + SLOTS * s : PG - 1, r = q / PX;
+    win0[s] = r * RS + PX * (q - r * PX);
+  }
+  // chunks this block consumes: two convs of NCHUNK for each of its crops
+  const uint32_t total = 2 * NCHUNK * ((N - 1 - (int)blockIdx.x) / (int)gridDim.x + 1);
 
-  // zero the tile once: the border stays zero (the pad), the interior is
-  // rewritten for every crop
-  for (int i = t; i < C * TP; i += NT) hs[i] = 0.0f;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = tid; i < TILE; i += NT) tile[i] = 0.0f;  // the pads stay zero: only the interior is rewritten
+  for (int i = tid; i < 4 * C; i += NT) abs_[i] = ab[i];
   __syncthreads();
+  if (tid == 0)
+    for (uint32_t s = 0; s < 2; ++s) {
+      mbar_expect_tx(bar + 8 * s, CHUNK * 4);
+      bulk_load(ring_a + s * CHUNK * 4, w + s * CHUNK, CHUNK * 4, bar + 8 * s);
+    }
+  load_crop(tile, x + (size_t)blockIdx.x * C * P, tid);
 
+  uint32_t it = 0;
+  float acc[SEG][PX][CO];
   for (int n = blockIdx.x; n < N; n += gridDim.x) {
+    const int next = n + gridDim.x;
     const float* xn = x + (size_t)n * C * P;
-    const float* src = xpad + (size_t)n * C * TP;
-
-    // conv1 -> h1 = relu(acc * a1 + b1), into the padded h1 tile
-    for (int pass = 0; pass < NPASS; ++pass) {
-      int base[PX];
+    const float* xnext = next < N ? x + (size_t)next * C * P : nullptr;
+    __syncthreads();  // the tile holds crop n
+    conv(tile, ring, ring_a, bar, w, it, total, win0, g, tid, acc);
 #pragma unroll
-      for (int j = 0; j < PX; ++j) {
-        const int p = pix0 + PSTRIDE * (pass * PX + j);
-        const int q = p < P ? p : 0;
-        base[j] = (q / S) * SP + q % S;
-      }
-      float acc[PX][8];
-      conv3x3(src, w1, base, co0, acc);
+    for (int s = 0; s < SEG; ++s)  // h1 = relu(acc * a1 + b1) over x, which every warp is done reading
+      if (live[s])
 #pragma unroll
-      for (int j = 0; j < PX; ++j) {
-        if (pix0 + PSTRIDE * (pass * PX + j) >= P) continue;
+        for (int k = 0; k < CO; ++k) {
+          const int co = CO * g + k;
+          const float a = abs_[co], b = abs_[C + co];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int co = co0 + k;
-          hs[co * TP + base[j] + SP + 1] = fmaxf(acc[j][k] * __ldg(ab + co) + __ldg(ab + C + co), 0.0f);
+          for (int j = 0; j < PX; ++j) tile[co * PS + win0[s] + RS + 1 + j] = fmaxf(acc[s][j][k] * a + b, 0.0f);
         }
-      }
-    }
-    __syncthreads();
-
-    // conv2 -> out = relu(acc * a2 + b2 + x); the barrier after it keeps
-    // the next crop's h1 writes behind every thread's reads here
-    for (int pass = 0; pass < NPASS; ++pass) {
-      int base[PX];
+    prefetch_l2(xn, tid);  // the residual and the next crop, read after conv2
+    if (xnext) prefetch_l2(xnext, tid);
+    __syncthreads();  // the tile holds h1
+    conv(tile, ring, ring_a, bar, w, it, total, win0, g, tid, acc);
 #pragma unroll
-      for (int j = 0; j < PX; ++j) {
-        const int p = pix0 + PSTRIDE * (pass * PX + j);
-        const int q = p < P ? p : 0;
-        base[j] = (q / S) * SP + q % S;
-      }
-      float acc[PX][8];
-      conv3x3(static_cast<const float*>(hs), w2, base, co0, acc);
+    for (int s = 0; s < SEG; ++s)  // acc * a2 + b2 over h1; the residual and relu follow in finish_crop
+      if (live[s])
 #pragma unroll
-      for (int j = 0; j < PX; ++j) {
-        const int p = pix0 + PSTRIDE * (pass * PX + j);
-        if (p >= P) continue;
+        for (int k = 0; k < CO; ++k) {
+          const int co = CO * g + k;
+          const float a = abs_[2 * C + co], b = abs_[3 * C + co];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int co = co0 + k;
-          const float y = acc[j][k] * __ldg(ab + 2 * C + co) + __ldg(ab + 3 * C + co) + xn[co * P + p];
-          out[(size_t)n * C * P + co * P + p] = fmaxf(y, 0.0f);
+          for (int j = 0; j < PX; ++j) tile[co * PS + win0[s] + RS + 1 + j] = acc[s][j][k] * a + b;
         }
-      }
-    }
     __syncthreads();
+    finish_crop(tile, xn, xnext, out + (size_t)n * C * P, tid);
   }
 }
 
-}  // namespace direct
+}  // namespace ffma
+
+// per kernel and device: the SM count once the shared-memory limit is set
+constexpr int MAX_DEVICES = 64;
 
 template <typename K, typename... A>
-int launch(K kernel, int threads, int smem, int N, cudaStream_t stream, A... args) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int launch(K kernel, int (&sms)[MAX_DEVICES], int threads, int smem, int N, cudaStream_t stream, A... args) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = N < sms ? N : sms;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {  // once per device: both calls are host work, not the launch's
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    int n = 0;
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    sms[dev] = n;
+  }
+  const int grid = N < sms[dev] ? N : sms[dev];
   kernel<<<grid, threads, smem, stream>>>(args..., N);
   return (int)cudaGetLastError();
 }
 
+int sms_bf16[MAX_DEVICES], sms_f32[MAX_DEVICES];
+
 }  // namespace
 
-// x, out [N, 64, 25, 25]; ab [4, 64] f32 rows a1, b1, a2, b2.
-// bf16 != 0: x, out bf16, xpad null, w1 and w2 the packed bf16 weights of
-//   ops/reid_block.py::pack_weights ([9 taps][64 co][64 ci], each 128-byte
-//   row swizzled: ci chunk c at chunk c ^ (co % 8)).
-// bf16 == 0: x, out f32, xpad x zero-padded to [N, 64, 27, 27], w1 and w2
-//   HWIO [3, 3, 64, 64] f32.
-extern "C" int vct_reid_block64(const void* x, const void* xpad, const void* w1, const void* w2, const void* ab,
-                                void* out, int N, int bf16, void* stream) {
+// x, out [N, 64, 25, 25]; ab [4, 64] f32 rows a1, b1, a2, b2; w both
+// convs' weights, packed by ops/reid_block.py:
+// bf16 != 0: x, out bf16, w pack_weights' [2 convs][9 taps][64 co][64 ci]
+//   bf16, each 128-byte row swizzled: ci chunk c at chunk c ^ (co % 8).
+// bf16 == 0: x, out f32, w pack_weights_f32's [2 convs][64 ci][9 taps][64 co]
+//   f32. x and w 16-byte aligned.
+extern "C" int vct_reid_block64(const void* x, const void* w, const void* ab, void* out, int N, int bf16,
+                                void* stream) {
   if (N <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16) {
-    if (xpad) return (int)cudaErrorInvalidValue;
-    return launch(tc::reid_block_bf16, tc::NT, tc::SMEM, N, st, (const __nv_bfloat16*)x, (const __nv_bfloat16*)w1,
-                  (const __nv_bfloat16*)w2, (const float*)ab, (__nv_bfloat16*)out);
+    const __nv_bfloat16* wb = (const __nv_bfloat16*)w;
+    return launch(tc::reid_block_bf16, sms_bf16, tc::NT, tc::SMEM, N, st, (const __nv_bfloat16*)x, wb,
+                  wb + 9 * C * C, (const float*)ab, (__nv_bfloat16*)out);
   }
-  if (!xpad) return (int)cudaErrorInvalidValue;
-  return launch(direct::reid_block_f32, direct::NT, direct::SMEM, N, st, (const float*)x, (const float*)xpad,
-                (const float*)w1, (const float*)w2, (const float*)ab, (float*)out);
+  return launch(ffma::reid_block_f32, sms_f32, ffma::NT, ffma::SMEM, N, st, (const float*)x, (const float*)w,
+                (const float*)ab, (float*)out);
 }
 
 // dynamic shared memory a block of the bf16 (bf16 != 0) or f32 kernel takes
-extern "C" int vct_reid_block64_smem(int bf16) { return bf16 ? tc::SMEM : direct::SMEM; }
+extern "C" int vct_reid_block64_smem(int bf16) { return bf16 ? tc::SMEM : ffma::SMEM; }

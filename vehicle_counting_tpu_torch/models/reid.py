@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from vehicle_counting_tpu_torch.ops.reid_block import fold_bn, hwio, reid_block64
+from vehicle_counting_tpu_torch.ops.weight_cache import cached
 from vehicle_counting_tpu_torch.utils.device import on_device
 
 EMBED_DIM = 512
@@ -118,11 +119,19 @@ def _reid_block_on() -> bool:
     return FORCE_REID_BLOCK_KERNEL is True or env == "1"
 
 
+def _hwio_of(w: torch.Tensor) -> torch.Tensor:
+    """The OIHW parameter `w` as K5's HWIO, kept per parameter (and its
+    in-place version), so that K5's wrapper sees the same tensor on every
+    call and finds its packed weights cached."""
+    return cached("hwio", (w,), lambda: hwio(w))
+
+
 def _block_fused(p, s, x, dtype):
     """Stage-1 block through K5 (BN folded), f32 out like `_basic_block`."""
     a1, b1 = fold_bn(p["bn1"]["scale"], p["bn1"]["bias"], s["bn1"]["mean"], s["bn1"]["var"], BN_EPS)
     a2, b2 = fold_bn(p["bn2"]["scale"], p["bn2"]["bias"], s["bn2"]["mean"], s["bn2"]["var"], BN_EPS)
-    return reid_block64(x.to(dtype), hwio(p["conv1"]["w"]), hwio(p["conv2"]["w"]), a1, b1, a2, b2).float()
+    w1, w2 = _hwio_of(p["conv1"]["w"]), _hwio_of(p["conv2"]["w"])
+    return reid_block64(x.to(dtype), w1, w2, a1, b1, a2, b2).float()
 
 
 def _trunk(params, stats, x: torch.Tensor, dtype, parity: bool) -> torch.Tensor:

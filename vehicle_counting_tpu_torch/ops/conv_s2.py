@@ -9,8 +9,9 @@ Contract: x [B, H, W, 32] (the JAX layout, NHWC), w HWIO [3, 3, 32, 64],
 b [64]; H % 32 == 0 and W % 64 == 0. Conv operands in x.dtype (bf16 or
 f32) accumulated in f32, bias and SiLU in f32, output [B, H/2, W/2, 64]
 in x.dtype. The bf16 kernel runs on the tensor cores and takes its weights
-packed per call by `pack_conv1_weights`; the f32 kernel (a parity mode on
-the CUDA cores) takes HWIO.
+packed by `pack_conv1_weights`, kept per source tensor
+(`ops/weight_cache.py`); the f32 kernel (a parity mode on the CUDA cores)
+takes HWIO.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from vehicle_counting_tpu_torch import _build
+from vehicle_counting_tpu_torch.ops.weight_cache import cached
 
 CIN = 32
 COUT = 64
@@ -73,6 +75,11 @@ def pack_conv1_weights(w: torch.Tensor) -> torch.Tensor:
     return flat[_pack_index(w.device)].to(torch.bfloat16).view(N_SLABS, COUT, 64)
 
 
+def kernel_weights(w: torch.Tensor) -> torch.Tensor:
+    """`pack_conv1_weights(w)`, kept while `w` lives and is not changed in place."""
+    return cached("conv_s2", (w,), lambda: pack_conv1_weights(w))
+
+
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -98,7 +105,7 @@ def _launch(x, w, b):
         raise ValueError(f"w and b [{COUT}] must be on {x.device}")
     x = x.contiguous()
     if x.dtype == torch.bfloat16:
-        w = pack_conv1_weights(w)
+        w = kernel_weights(w)
         if x.data_ptr() % 16:  # the kernel copies 16 bytes at a time
             x = x.clone()
     else:

@@ -12,8 +12,10 @@ accumulation, h1 rounded to the compute dtype (the pad acts as zeros),
 y = h2 * a2 + b2 + x in f32, relu, output in x.dtype. Activations are
 NCHW [N, 64, 25, 25], the port's ReID layout; weights HWIO [3, 3, 64, 64]
 (`hwio` from the port's OIHW, `models/convert.py` from the JAX pytree).
-The bf16 kernel runs on the tensor cores and takes its weights packed per
-call by `pack_weights`; the f32 kernel (a parity mode) takes HWIO.
+The bf16 kernel runs on the tensor cores and takes its weights packed by
+`pack_weights`; the f32 kernel (a parity mode) runs on the CUDA cores and
+takes them packed by `pack_weights_f32`. `kernel_weights` keeps each pack
+per source tensor (`ops/weight_cache.py`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from vehicle_counting_tpu_torch import _build
+from vehicle_counting_tpu_torch.ops.weight_cache import cached
 
 C = 64
 S = 25
@@ -65,6 +68,20 @@ def pack_weights(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     return torch.stack([w1, w2]).reshape(-1)[_pack_index(w1.device)].to(torch.bfloat16).view(2, 9, C, C)
 
 
+def pack_weights_f32(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """HWIO [3, 3, 64, 64] x 2 -> the f32 kernel's [2 convs, 64 ci, 9 taps,
+    64 co] f32: every 8 input channels are one contiguous chunk of all 9
+    taps, which the kernel streams into shared memory by one copy."""
+    return torch.stack([w1, w2]).permute(0, 3, 1, 2, 4).float().contiguous().view(2, C, 9, C)
+
+
+def kernel_weights(w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Both convs' weights as the kernel of `dtype` takes them, kept per
+    (w1, w2) while those tensors live and are not changed in place."""
+    pack = pack_weights if dtype == torch.bfloat16 else pack_weights_f32
+    return cached(("reid_block", dtype), (w1, w2), lambda: pack(w1, w2))
+
+
 def _conv(v: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
     """3x3 pad-1 conv of compute-dtype operands, accumulated in f32."""
     return F.conv2d(v.float(), w_hwio.to(v.dtype).float().permute(3, 2, 0, 1), padding=1)
@@ -79,11 +96,23 @@ def reid_block64_plain(x, w1, w2, a1, b1, a2, b2):
     return torch.relu(y).to(x.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _launch_kernel(x, wk, ab):
+    """The C entry point on checked operands: x contiguous and 16-byte
+    aligned, wk both convs' packed weights (`kernel_weights`), ab [4, 64]
+    f32 rows a1, b1, a2, b2."""
+    out = torch.empty_like(x)
+    fn = _build.entry("reid_block", "vct_reid_block64", _ARGTYPES)
+    rc = fn(x.data_ptr(), wk.data_ptr(), ab.data_ptr(), out.data_ptr(), x.shape[0], int(x.dtype == torch.bfloat16),
+            _build.current_stream(x.device))
+    _build.check(rc, "reid block kernel")
+    return out
 
 
 def _launch(x, w1, w2, a1, b1, a2, b2):
-    """Check the operands and launch the CUDA kernel."""
+    """Check the operands, bring them into the kernel's form and launch it."""
     if x.dim() != 4 or tuple(x.shape[1:]) != (C, S, S):
         raise ValueError(f"x must be [N, {C}, {S}, {S}], got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
@@ -94,23 +123,10 @@ def _launch(x, w1, w2, a1, b1, a2, b2):
     ab = torch.stack([a1, b1, a2, b2]).float().contiguous()
     if ab.shape != (4, C) or ab.device != x.device:
         raise ValueError(f"a1, b1, a2, b2 must be [{C}] on {x.device}")
-    bf16 = x.dtype == torch.bfloat16
     x = x.contiguous()
-    if bf16:
-        w1, w2 = pack_weights(w1, w2)
-        xpad = None
-        if x.data_ptr() % 16:  # the kernel bulk-copies crops: 16-byte aligned
-            x = x.clone()
-    else:
-        w1, w2 = w1.float().contiguous(), w2.float().contiguous()
-        # the f32 tiles do not both fit in shared memory: x is read zero-padded from global
-        xpad = F.pad(x, (1, 1, 1, 1))
-    out = torch.empty_like(x)
-    fn = _build.entry("reid_block", "vct_reid_block64", _ARGTYPES)
-    rc = fn(x.data_ptr(), None if xpad is None else xpad.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            ab.data_ptr(), out.data_ptr(), x.shape[0], int(bf16), _build.current_stream(x.device))
-    _build.check(rc, "reid block kernel")
-    return out
+    if x.data_ptr() % 16:  # the kernels copy crops 16 bytes at a time
+        x = x.clone()
+    return _launch_kernel(x, kernel_weights(w1, w2, x.dtype), ab)
 
 
 def reid_block64(x, w1, w2, a1, b1, a2, b2):
