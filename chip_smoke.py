@@ -128,6 +128,10 @@ Phases, each fatal on failure:
             the trace it wrote;
   weights   the CLI with --weight and a ReID checkpoint, both made from
             seeds (an ultralytics-named .pt state dict and a .t7);
+  weight cache  the CLI without --weight from a directory whose ./.cache
+            holds that .pt as yolov5s.pt: the --weight run's CSV row for
+            row and its K1 / K2 launches; then from an empty directory: the
+            fetch fails and the detector is the seed-0 random init;
   reid-train  5 ReID train steps (B=16, 8 classes) on the card against
             the CPU with the same init, batches and dropout draws: f32 (TF32
             off) to a stated tolerance, f64 to 1e-8 of each gradient's
@@ -138,13 +142,17 @@ Phases, each fatal on failure:
   reid_cli  2 epochs on a synthetic ImageFolder (rc 0, new_ckpt.npz,
             train.jpg, the history), then --resume from the saved epoch;
             whether matplotlib imports;
-  tools     e2e_smoke on 48 frames of 720p, the soak at 1024 frames (fps
-            first / last sample, RSS growth, peak device memory), the
-            egress_day dry run on seeded fake checkpoints, and
-            graft_entry.entry() once.
+  tools     e2e_smoke on 48 frames of 720p with a seeded .pt as --weight,
+            the soak at 1024 frames (fps first / last sample, RSS growth,
+            peak device memory), the egress_day dry run on seeded fake
+            checkpoints, and graft_entry.entry() once.
 Each kernel's bound (the least time the card could take: bytes over
 3.35 TB/s or operations over the peak rate of their type, whichever is
 larger) is computed from the checked call's inputs.
+No URL is fetched: the process refuses every fetch before any phase, so
+the pipeline's weight resolution (./.cache, a fetch, random init) ends in
+random init without contacting an outside host, as it would on a machine
+with no network; subprocesses that build a pipeline get --weight.
 Prints the card, a kernel JSON line, and last {"ok": true, "device": ...}.
 Exits non-zero without printing a result when there is no CUDA device or
 the package is missing.
@@ -155,6 +163,8 @@ import contextlib
 import io
 import json
 import os
+import re
+import shutil
 import sys
 import tempfile
 import time
@@ -2642,21 +2652,33 @@ def run_profile(dev, tmp, path, zones, conf, mapping):
             "window_ms": summ["window_us"] / 1e3, "by_category_us": summ["by_category"], "launches": launches}
 
 
+def seeded_yolo_pt(path, rng, variant=VARIANT):
+    """An ultralytics-style hub dict at `path`: a yolov5 state dict with
+    ultralytics' names in fp16, drawn from `rng`. Returns the f32 arrays."""
+    import torch
+
+    from vehicle_counting_tpu_torch.testing import fake_yolov5_state_dict
+
+    sd = fake_yolov5_state_dict(rng, variant, 80)
+    torch.save({"model": {k: torch.from_numpy(v).half() for k, v in sd.items()}, "epoch": -1}, path)
+    return sd
+
+
 def run_weights(dev, tmp, path, zones):
     """The CLI with --weight and a ReID checkpoint made from seeds: a
     yolov5s state dict with ultralytics' names (.pt) and a net_dict (.t7).
     The loaded trees must be what a fold of the same arrays on the host
-    gives, and the run must write its CSV."""
+    gives, and the run must write its CSV. Returns (the run's summary, its
+    CSV rows, (the .pt, the .t7))."""
     import torch
 
     from vehicle_counting_tpu_torch.models import convert
     from vehicle_counting_tpu_torch.models.reid import load_reid_weights
-    from vehicle_counting_tpu_torch.testing import fake_reid_state_dict, fake_yolov5_state_dict
+    from vehicle_counting_tpu_torch.testing import fake_reid_state_dict
 
     rng = np.random.default_rng(SEED + 9)
-    sd = fake_yolov5_state_dict(rng, VARIANT, 80)
     pt, t7 = os.path.join(tmp, "yolov5s_seeded.pt"), os.path.join(tmp, "ckpt_seeded.t7")
-    torch.save({"model": {k: torch.from_numpy(v).half() for k, v in sd.items()}, "epoch": -1}, pt)
+    sd = seeded_yolo_pt(pt, rng)
     rsd = fake_reid_state_dict(rng)
     torch.save({"net_dict": {k: torch.from_numpy(v) for k, v in rsd.items()}, "acc": 0.5, "epoch": 3}, t7)
     tree = convert.load_yolov5_weights(pt, dev)
@@ -2676,7 +2698,68 @@ def run_weights(dev, tmp, path, zones):
     for name in ("crops", "cascade"):
         if launches[name] <= 0:
             raise AssertionError(f"the --weight run never launched the {name} kernel")
-    return {"fps": fps, "rows": len(df), "launches": launches}
+    return {"fps": fps, "rows": len(df), "launches": launches}, df, (pt, t7)
+
+
+class _Tee(io.TextIOBase):
+    """Writes to every stream it holds (stdout, and a buffer to read)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for f in self.streams:
+            f.write(s)
+        return len(s)
+
+    def flush(self):
+        for f in self.streams:
+            f.flush()
+
+
+def run_weight_cache(dev, tmp, path, zones, seeded, df_weight, launches_weight):
+    """The CLI without --weight, resolving the detector as the JAX package
+    does. From a directory whose ./.cache holds run_weights' seeded .pt as
+    yolov5s.pt: the CSV must be the --weight run's row for row, with as
+    many K1 and K2 launches. From an empty directory: the fetch fails (this
+    process refuses every fetch) and the detector is the seed-0 random
+    init, with no file left in its ./.cache. Both run with the --weight
+    run's other arguments; the working directory is restored after each."""
+    pt, t7 = seeded
+    run_args = dict(conf=0.001, mapping=None, n_frames=N_SWITCHED, extra_args=("--no_visualize", "--check_numerics"),
+                    reid_checkpoint=t7)
+    cached = os.path.join(tmp, "weight_cache")
+    os.makedirs(os.path.join(cached, ".cache"))
+    shutil.copyfile(pt, os.path.join(cached, ".cache", f"{VARIANT}.pt"))
+    with contextlib.chdir(cached):
+        fps, launches, df = run_pipeline(dev, tmp, path, zones, out="out_weight_cache", **run_args)
+    n_bad, first = _csv_diff(df_weight, df)
+    if n_bad:
+        raise AssertionError(f"./.cache/{VARIANT}.pt: {n_bad} rows differ from the --weight run's ({len(df)} vs "
+                             f"{len(df_weight)}), first {first}")
+    for name in ("crops", "cascade"):
+        if not 0 < launches[name] == launches_weight[name]:
+            raise AssertionError(f"./.cache/{VARIANT}.pt: {launches[name]} {name} launches, the --weight run "
+                                 f"{launches_weight[name]}")
+    empty = os.path.join(tmp, "weight_none")
+    os.makedirs(empty)
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.chdir(empty), contextlib.redirect_stdout(_Tee(sys.stdout, said)):
+        _, launches_none, df_none = run_pipeline(dev, tmp, path, zones, out="out_weight_none", **run_args)
+    wall_none = time.perf_counter() - t0
+    text = said.getvalue()
+    fetch = re.search(r"\[download\] could not fetch \S+ \(([0-9.]+) s\)", text)
+    if fetch is None or "no weights available; using a random-init detector (seed 0)" not in text:
+        raise AssertionError("an empty working directory: the failed fetch's or the random-init line is missing")
+    left = os.listdir(os.path.join(empty, ".cache"))
+    if left:
+        raise AssertionError(f"the failed fetch left {left} in ./.cache")
+    res = {"rows": len(df), "rows_differing": n_bad, "launches": launches, "fps": fps,
+           "no_cache": {"fetch_s": float(fetch.group(1)), "rows": len(df_none), "launches": launches_none,
+                        "cli_wall_s": wall_none}}
+    print(f"weight cache: {json.dumps(res)}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2973,10 +3056,10 @@ def _egress_inputs(tmp, seed=SEED + 68):
 
 def run_tools(dev, tmp):
     """The tools on the card: e2e_smoke (the CLI in a subprocess, 48
-    frames of 720p: schema and MP4 frame count); the soak at 1024 frames
-    (fps first / last sample, RSS growth, peak device memory); the
-    egress_day dry run on seeded fake checkpoints (rc 0); graft_entry's
-    entry() once."""
+    frames of 720p with a seeded .pt: schema and MP4 frame count); the
+    soak at 1024 frames (fps first / last sample, RSS growth, peak device
+    memory); the egress_day dry run on seeded fake checkpoints (rc 0);
+    graft_entry's entry() once."""
     import torch
 
     from vehicle_counting_tpu_torch import graft_entry
@@ -2984,8 +3067,11 @@ def run_tools(dev, tmp):
     from vehicle_counting_tpu_torch.tools import e2e_smoke, egress_day
 
     out = {}
+    pt = os.path.join(tmp, "yolov5s_e2e.pt")
+    seeded_yolo_pt(pt, np.random.default_rng(SEED + 9))
     t0 = time.perf_counter()
-    rc = e2e_smoke.main(["--out", os.path.join(tmp, "e2e"), "--frames", "48"])
+    # the CLI's subprocess would try a real fetch without --weight
+    rc = e2e_smoke.main(["--out", os.path.join(tmp, "e2e"), "--frames", "48", "--weight", pt])
     out["e2e_smoke"] = {"rc": rc, "wall_s": time.perf_counter() - t0}
     if rc != 0:
         raise AssertionError("e2e_smoke failed")
@@ -3509,7 +3595,20 @@ def _flag_value(flag):
     return argv[argv.index(flag) + 1] if flag in argv[:-1] else None
 
 
+def refuse_fetches():
+    """Every URL fetch of this process fails at once, as on a machine with
+    no network, without trying to reach the host."""
+    import urllib.error
+    import urllib.request
+
+    def refuse(url, *args, **kwargs):
+        raise urllib.error.URLError(f"chip_smoke fetches nothing ({getattr(url, 'full_url', url)})")
+
+    urllib.request.urlopen = refuse
+
+
 def main() -> int:
+    refuse_fetches()
     if "--multi-card" in sys.argv[1:]:
         return multi_card(sys.argv[1:])
     if "--fleet-worker" in sys.argv[1:]:
@@ -3634,7 +3733,9 @@ def main() -> int:
         phase("--profile CLI run + profile_summary", card)
         prof = run_profile(dev, tmp, path_sw, zones_sw, conf, mapping)
         phase("--weight CLI run (seeded .pt + .t7)", card)
-        wts = run_weights(dev, tmp, path_sw, zones_sw)
+        wts, df_wts, seeded = run_weights(dev, tmp, path_sw, zones_sw)
+        phase("weight cache: the CLI without --weight, from ./.cache/yolov5s.pt, then from an empty directory", card)
+        wcache = run_weight_cache(dev, tmp, path_sw, zones_sw, seeded, df_wts, wts["launches"])
 
     phase("stage_bench", card)
     stages, launches_stage = run_stage_bench(dev)
@@ -3726,6 +3827,9 @@ def main() -> int:
           f"{telemetry['upload_gbps_p50_by_streams']} [{card}]")
     print(f"--profile run: {json.dumps(prof)} [{card}]")
     print(f"--weight run: {json.dumps(wts)} [{card}]")
+    print(f"weight cache: CSV rows differing from the --weight run {wcache['rows_differing']} of {wcache['rows']}, "
+          f"launches {json.dumps(wcache['launches'])}; no cache: the refused fetch took "
+          f"{wcache['no_cache']['fetch_s']} s, random init, {wcache['no_cache']['rows']} rows [{card}]")
     print(f"reid-train parity, card against CPU: {json.dumps(train_parity)} [{card}]")
     print(f"reid-train throughput: {json.dumps(train_speed)} [{card}]")
     print(f"reid_cli: {json.dumps(train_cli)} [{card}]")

@@ -73,6 +73,8 @@ PORT_MODULES = [
     "vehicle_counting_tpu_torch.utils.seed",
     "vehicle_counting_tpu_torch.utils.registry",
     "vehicle_counting_tpu_torch.utils.debug_draw",
+    "vehicle_counting_tpu_torch.utils.download",
+    "vehicle_counting_tpu_torch.version",
     "vehicle_counting_tpu_torch.tools.convert_weights",
     "vehicle_counting_tpu_torch.tools.cocosplit",
     "vehicle_counting_tpu_torch.tools.split_csv",
@@ -130,7 +132,7 @@ def test_public_names_resolve_without_jax():
         "        getattr(pkg, name)\n"
         "        n += 1\n"
         "importlib.import_module('vehicle_counting_tpu_torch').CountingPipeline\n"
-        "assert n == 46, n  # 45 re-exported names of the JAX inits, and ops.true_div\n"
+        "assert n == 48, n  # 47 re-exported names of the JAX inits, and ops.true_div\n"
         "assert not any(k.split('.')[0] in ('jax', 'vehicle_counting_tpu') for k, v in sys.modules.items()"
         " if v is not None)\n"
         "print('ok')\n"

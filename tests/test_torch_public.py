@@ -17,11 +17,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG, PORT_PKG = "vehicle_counting_tpu", "vehicle_counting_tpu_torch"
 
-# Left out on purpose: the port downloads nothing (no utils/download.py);
-# XLA's compilation cache is `_build.py`'s kernel cache in the port;
-# JAX's sharding names belong to jax.
+# Left out on purpose: XLA's compilation cache is `_build.py`'s kernel
+# cache in the port; JAX's sharding names belong to jax.
 EXCLUDED = {
-    "utils": {"download_pretrained_weights", "get_model_weights"},
     "pipeline": {"enable_compilation_cache", "NamedSharding", "P"},
 }
 # the TPU kernels' package: its kernels are csrc/ (not carried over, on purpose)
@@ -79,7 +77,7 @@ def test_the_jax_inits_are_read():
                                   "config_from_dict": "vehicle_counting_tpu.configs",
                                   "CountingPipeline": "vehicle_counting_tpu.pipeline"}
     assert len(_public_names("ops")) == 18 and len(_public_names("models")) == 9
-    assert len(_public_names("tracking")) == 9 and len(_public_names("utils")) == 6
+    assert len(_public_names("tracking")) == 9 and len(_public_names("utils")) == 8
 
 
 @pytest.mark.parametrize("sub", _jax_inits())
@@ -90,7 +88,7 @@ def test_public_names_resolve_in_the_port(sub):
     missing = [n for n in names if not hasattr(port, n)]
     assert not missing, f"{port.__name__} lacks {missing}"
     for name, jax_module in names.items():
-        if jax_module is None or jax_module == f"{JAX_PKG}.version":
+        if jax_module is None:
             continue
         # the port module the name stands for, loaded first: a submodule of
         # the same name (ops.letterbox) must not take the name's place

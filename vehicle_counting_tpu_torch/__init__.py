@@ -17,10 +17,9 @@ Public surface, as the JAX package's:
     from vehicle_counting_tpu_torch import Config, CountingPipeline
 """
 
-__version__ = "0.1.0"
-
-from vehicle_counting_tpu_torch._lazy import lazy_exports  # noqa: E402
-from vehicle_counting_tpu_torch.configs import Config, config_from_dict  # noqa: E402
+from vehicle_counting_tpu_torch._lazy import lazy_exports
+from vehicle_counting_tpu_torch.configs import Config, config_from_dict
+from vehicle_counting_tpu_torch.version import __version__
 
 # CountingPipeline is imported on first use, so that `import
 # vehicle_counting_tpu_torch` pulls in neither cv2 nor the pipeline.

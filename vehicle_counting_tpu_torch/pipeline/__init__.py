@@ -112,9 +112,15 @@ class CountingPipeline:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
 
-        # ---- detector (a checkpoint, else random init from a seed; no download)
+        # ---- detector: --weight, else ./.cache/<variant>.pt, else the COCO
+        # checkpoint fetched into it, else random init from a seed (the
+        # JAX package's order, networks/yolo.py:14-17)
         weight = getattr(args, "weight", None)
         variant = self.config.model_name or "yolov5s"
+        if not weight:
+            from vehicle_counting_tpu_torch.utils.download import get_model_weights
+
+            weight = get_model_weights(variant)
         if weight:
             from vehicle_counting_tpu_torch.models.convert import load_yolov5_weights
 
@@ -123,7 +129,7 @@ class CountingPipeline:
             self.ycfg = YoloConfig(variant=variant, num_classes=nc)
         else:
             nc = 80
-            print("[pipeline] no weights given; using a random-init detector (seed 0)")
+            print("[pipeline] no weights available; using a random-init detector (seed 0)")
             self.ycfg = YoloConfig(variant=variant, num_classes=nc)
             yolo_params = init_yolov5(torch.Generator().manual_seed(0), self.ycfg, self.device)
         self.yolo_params = cast_params(yolo_params, self.dtype)

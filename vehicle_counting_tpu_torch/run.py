@@ -7,8 +7,10 @@
 --detect_only writes {cam}_detections.csv per video (no tracking; score it
 with `python -m vehicle_counting_tpu_torch.evaluation`). --weight takes an
 ultralytics yolov5 v6.0 `.pt` (or an `.npz` state dict); the ReID
-checkpoint is `checkpoint:` in cam_configs.yaml. Without them the detector
-and ReID weights are random-init from fixed seeds: nothing is downloaded.
+checkpoint is `checkpoint:` in cam_configs.yaml. Without --weight the
+detector loads ./.cache/<model_name>.pt, else tries one fetch of the COCO
+checkpoint into it, else is random-init from seed 0 (utils/download.py);
+without a checkpoint the ReID weights are random-init from seed 1.
 --multicam counts every video concurrently on the one card
 (pipeline/multicam.py) instead of the reference's strictly serial loop.
 --frame_parallel splits each batch's frames over every card for detection
@@ -22,7 +24,8 @@ import json
 import os
 
 parser = argparse.ArgumentParser(description="Perform Counting vehicles (PyTorch + CUDA)")
-parser.add_argument("--weight", type=str, default=None, help="yolov5 checkpoint (.pt / .npz); random init without it")
+parser.add_argument("--weight", type=str, default=None,
+                    help="yolov5 checkpoint (.pt / .npz); else ./.cache/<model_name>.pt, a fetch, random init")
 parser.add_argument("--input_path", type=str, required=True, help="video file or directory")
 parser.add_argument("--output_path", type=str, required=True, help="directory for CSV/MP4 outputs")
 parser.add_argument("--gpus", type=str, default="0", help="accepted for parity with the reference; use --device")

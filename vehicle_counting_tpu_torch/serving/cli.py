@@ -18,9 +18,11 @@ them (a configs.yaml; the detector-to-tracked class map).
     # process than the export: that is the deployment contract)
     python -m vehicle_counting_tpu_torch.serving.cli verify --artifact art
 
-Without --weight / a ReID checkpoint the weights are random-init from fixed
-seeds, as in `run.py` (nothing is downloaded). Each command prints one JSON
-line; `verify` exits non-zero on any mismatch.
+The detector's weights resolve as in `run.py`: --weight, else
+./.cache/<variant>.pt, else one fetch of the COCO checkpoint into it, else
+random init from seed 0; the export bundles whichever was resolved. Without
+a ReID checkpoint the ReID weights are random-init from seed 1. Each
+command prints one JSON line; `verify` exits non-zero on any mismatch.
 """
 
 from __future__ import annotations

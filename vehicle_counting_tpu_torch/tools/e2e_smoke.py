@@ -18,7 +18,8 @@ is cwd-relative there), then asserts:
   * the counting CSV exists and parses with the exact 10-column schema;
   * the annotated MP4 exists with EXACTLY the source frame count;
   * row/count stats are printed for the record.
-Exit status 0 = pass. Weights are random-init unless --weight is given, so
+Exit status 0 = pass. Weights are random-init unless --weight is given or
+the repo root's ./.cache holds the checkpoint (the CLI runs there), so
 box contents are meaningless — the checks are structural (schema, frame
 counts, pipeline health), which is what a no-egress environment can pin.
 """
