@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --cli-ab   # only the CLI's frames/s, repeated (see cli_ab)
     python3 chip_smoke.py --kernel-ab [--root DIR]   # only the K1, K6, K7 checks of a checkout (see kernel_ab)
-    python3 chip_smoke.py --multi-card   # two or more cards: frame-parallel and the fleet across them (see multi_card)
+    python3 chip_smoke.py --multi-card   # two or more cards: frame-parallel, cameras and the fleet across them (see multi_card)
     python3 chip_smoke.py --k5-parent DIR   # the default run, with the K5 of the checkout at DIR beside this one
 
 Phases, each fatal on failure:
@@ -106,6 +106,12 @@ Phases, each fatal on failure:
             MP4s, K1 launched, K2 once per frame-round for all cameras, no
             K3; each camera's CSV against the serial CLI's; camera-frames/s
             of both in turns;
+  camera mesh  the camera-sharded step over a mesh that repeats cuda:0
+            twice: f32, 3 cameras padded to 4, 2 x B=8, every state leaf
+            and track output bitwise == the unsharded step; two frame
+            runners (one per shard), K2 launched twice per frame-round;
+            then `MultiCamCountingPipeline` over that mesh on the
+            multi-camera videos: each CSV row for row against (c)'s;
   framedp   (a) the frame-parallel step on a mesh of [cuda:0] == the serial
             step, bitwise on every output and state leaf (f32, 2 x B=8,
             720p I420); (b) on [cuda:0, cuda:0] == the serial step at B/2
@@ -883,7 +889,7 @@ def embed_ab(dev, n_frames=128, per_frame=30):
     def embed():
         with torch.no_grad():
             for i in range(0, crops.shape[0], chunk):
-                reid.reid_forward(rp, rs, crops[i : i + chunk], dtype=torch.bfloat16)
+                reid.reid_embed(rp, rs, crops[i : i + chunk], dtype=torch.bfloat16)
 
     old, t = reid.FORCE_REID_BLOCK_KERNEL, {False: [], True: []}
     try:
@@ -1197,7 +1203,7 @@ def calibrate(dev, path):
         det, _ = detect_embed_core(
             yp, cast_conv_weights(rp, torch.bfloat16), rs, yuv, torch.ones(8, dtype=torch.bool, device=dev),
             torch.arange(80, dtype=torch.int32, device=dev), ycfg=cfg, hp=hp, image_size=net, src_hw=SRC_HW,
-            conf_thres=0.0, iou_thres=0.45, max_det=300, dtype=torch.bfloat16)
+            conf_thres=0.0, iou_thres=0.45, max_det=300, dtype=torch.bfloat16, frames_format="letterboxed_yuv420")
     conf, _, top4 = calibrate_from_det(det, 30)
     return conf, {int(c): i for i, c in enumerate(top4)}
 
@@ -1439,7 +1445,7 @@ def check_parity(dev, path):
             _, det, tout = pipeline_batch_step(
                 to(yp, d), to(rp, d), to(rs, d), init_states(hp, d), yuv.to(d), torch.ones(b, dtype=torch.bool, device=d),
                 torch.from_numpy(lut).to(d), ycfg=cfg, hp=hp, image_size=net, src_hw=SRC_HW,
-                conf_thres=conf, iou_thres=0.45, max_det=300, dtype=torch.float32)
+                conf_thres=conf, iou_thres=0.45, max_det=300, dtype=torch.float32, frames_format="letterboxed_yuv420")
         return det, tout
 
     outs = {}
@@ -1481,7 +1487,7 @@ def check_parity(dev, path):
         det_s, feats = detect_embed_core(
             to(yp, dev), to(rp, dev), to(rs, dev), yuv.to(dev), torch.ones(b, dtype=torch.bool, device=dev),
             torch.from_numpy(lut).to(dev), ycfg=cfg, hp=hp, image_size=net, src_hw=SRC_HW,
-            conf_thres=conf, iou_thres=0.45, max_det=300, dtype=torch.float32)
+            conf_thres=conf, iou_thres=0.45, max_det=300, dtype=torch.float32, frames_format="letterboxed_yuv420")
 
     def scan_ms(staged):
         tracker.FORCE_CASCADE_KERNEL = False if staged else old
@@ -1539,7 +1545,8 @@ def check_frame_graph(dev, path, conf, mapping):
             yuv = torch.from_numpy(host_letterbox_yuv420(frames[i : i + b], net, content_only=True)).to(dev)
             batches.append(step_mod.detect_embed_core(
                 yp, rp, rs, yuv, torch.ones(b, dtype=torch.bool, device=dev), lut, ycfg=cfg, hp=hp,
-                image_size=net, src_hw=SRC_HW, conf_thres=conf, iou_thres=0.45, max_det=300, dtype=torch.bfloat16))
+                image_size=net, src_hw=SRC_HW, conf_thres=conf, iou_thres=0.45, max_det=300, dtype=torch.bfloat16,
+                frames_format="letterboxed_yuv420"))
     del frames
 
     def scan(states, det, feats, graph, staged):
@@ -1838,7 +1845,7 @@ def check_front_parity(dev, path):
     for d in ("cpu", dev):
         with torch.no_grad():
             dets[str(d)] = {k: v.cpu() for k, v in detect_only_step(_tree_to(yp, d), yuv.to(d), ycfg=cfg,
-                                                                     conf_thres=conf, **kw).items()}
+                                                                     conf_thres=conf, content_only=True, **kw).items()}
     dc, dg = dets["cpu"], dets[str(dev)]
     if not (torch.equal(dc["valid"], dg["valid"]) and torch.equal(dc["classes"], dg["classes"])):
         raise AssertionError("detect-only: detections differ between card and CPU")
@@ -2077,7 +2084,7 @@ def check_multicam_parity(dev, paths):
     def multicam(d):
         states = regroup_states(init_states(camera_params(hp, n), d), (n, hp.num_classes))
         with torch.no_grad():
-            st, out = multicam_batch_step(to(yp, d), to(rp, d), to(rs, d), states, yuv.to(d), valid.to(d),
+            st, out = multicam_batch_step(None, to(yp, d), to(rp, d), to(rs, d), states, yuv.to(d), valid.to(d),
                                           torch.from_numpy(lut).to(d), **kw)
         return TrackerState(*(x.cpu() for x in st)), [x.cpu() for x in out]
 
@@ -2123,16 +2130,19 @@ def write_multicam_videos(tmp):
     return vids, os.path.join(vids, "zones"), paths
 
 
-def run_cli_dir(dev, tmp, vids, zones, conf, mapping, out, multicam, visualize=False, config_over=None):
+def run_cli_dir(dev, tmp, vids, zones, conf, mapping, out, multicam, visualize=False, config_over=None, mesh=None):
     """The CLI over a directory of videos, serial or with --multicam
-    (`config_over` sets configs.yaml keys). Returns {camera-frames/s of the
-    loops (decode to readback, no model init, CSV or MP4), the CLI's wall,
-    the kernel counts of that run, each camera's frames, CSV rows and MP4
+    (`config_over` sets configs.yaml keys; `mesh`, with multicam, the
+    `MultiCamCountingPipeline` built on that mesh in place of `run.main`'s
+    default one). Returns {camera-frames/s of the loops (decode to readback,
+    no model init, CSV or MP4), the CLI's wall, the kernel counts of that
+    run, K2 launches per card, each camera's frames, CSV rows and MP4
     path}."""
     import pandas as pd
     import torch
 
     from vehicle_counting_tpu_torch import run
+    from vehicle_counting_tpu_torch.pipeline.multicam import MultiCamCountingPipeline
 
     out_dir = os.path.join(tmp, out)
     args = run.parser.parse_args(["--input_path", vids, "--output_path", out_dir, "--device", str(dev),
@@ -2145,10 +2155,16 @@ def run_cli_dir(dev, tmp, vids, zones, conf, mapping, out, multicam, visualize=F
     cam_config.zone_path = zones
     counters = kernel_counters()
     zero_counts(counters)
-    t0 = time.perf_counter()
-    results = run.main(args, config, cam_config)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with k2_per_card() as per_card:
+        t0 = time.perf_counter()
+        if mesh is None:
+            results = run.main(args, config, cam_config)
+        else:
+            args.mapping_dict = run._mapping_dict(args.mapping)
+            results = MultiCamCountingPipeline(args, config, cam_config, mesh=mesh).run(visualize=visualize)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        wall = time.perf_counter() - t0
     launches = read_counts(counters)
     failed = [r for r in results if not r.get("csv")]
     if failed:
@@ -2159,8 +2175,8 @@ def run_cli_dir(dev, tmp, vids, zones, conf, mapping, out, multicam, visualize=F
     else:
         fps = sum(frames) / sum(r["frames"] / r["fps"] for r in results)
     cams = [os.path.basename(r["csv"])[:-4] for r in results]
-    return {"fps": fps, "wall_s": wall, "launches": launches, "frames": frames, "batch": config.detect_batch,
-            "dfs": {c: pd.read_csv(r["csv"]) for c, r in zip(cams, results)},
+    return {"fps": fps, "wall_s": wall, "launches": launches, "k2_per_card": dict(per_card), "frames": frames,
+            "batch": config.detect_batch, "dfs": {c: pd.read_csv(r["csv"]) for c, r in zip(cams, results)},
             "mp4": {c: os.path.join(out_dir, c + ".mp4") for c in cams}}
 
 
@@ -2225,7 +2241,7 @@ def run_multicam_cli(dev, tmp, vids, zones, conf, mapping):
           f"CLI wall s (model init and counting included) multicam {[round(v, 2) for v in walls['multicam']]}, "
           f"serial {[round(v, 2) for v in walls['serial']]}")
     return {"launches": lc, "launches_serial": serial_launches, "rounds": rounds, "fps": fps, "wall_s": walls,
-            "csv_vs_serial": diff, "rows": rows}
+            "csv_vs_serial": diff, "rows": rows, "dfs": mc["dfs"]}
 
 
 def multicam_tracker_ab(dev, fg):
@@ -2275,6 +2291,204 @@ def multicam_tracker_ab(dev, fg):
           f"4, 16, 32, 32, 16, 4: {json.dumps(res['ms_per_frame'])}; per camera-frame at 16 / 32 classes: "
           f"{min(t[4]) / 4:.4f} / {min(t[8]) / 8:.4f} against {min(t[1]):.4f}; one replay: {json.dumps(replay)}")
     return res
+
+
+@contextlib.contextmanager
+def k2_per_card():
+    """{card: K2 launches} of the frame-graph replays inside the block, by
+    the replaying runner's device (the wrappers' counts are the process's,
+    summed over cards)."""
+    from vehicle_counting_tpu_torch.ops import cascade
+    from vehicle_counting_tpu_torch.tracking import graph
+
+    counts, real = collections.Counter(), graph.FrameRunner._step
+
+    def step(self):
+        real(self)
+        counts[str(self.device)] += self.replay_launches.get(cascade.cascade_match_classparallel, 0)
+
+    graph.FrameRunner._step = step
+    try:
+        yield counts
+    finally:
+        graph.FrameRunner._step = real
+
+
+def camera_frames(paths, n_cam, frames):
+    """[n_cam, frames, rows, 640] host-packed I420 (720p content rows): camera
+    i's frames are the first `frames` of paths[i], or with one path its
+    i-th run of `frames` frames."""
+    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, host_letterbox_yuv420
+
+    net = autoshape_hw(SRC_HW, 640)
+    if len(paths) == 1:
+        raw = first_batch(paths[0], n_cam * frames)
+        cams = [raw[i * frames:(i + 1) * frames] for i in range(n_cam)]
+    else:
+        cams = [first_batch(p, frames) for p in paths[:n_cam]]
+    return np.stack([host_letterbox_yuv420(c, net, content_only=True) for c in cams])
+
+
+def check_camera_mesh_step(dev, yuv, mesh, b=8):
+    """f32 (TF32 off), yolov5s, C=4, K=64: the cameras of `yuv` ([N, 2b, ...]
+    host I420), padded with all-invalid cameras to a multiple of the mesh
+    size, two chained batches of b frames through `multicam_batch_step`
+    over `mesh` (frames uploaded per shard to its card, weights from
+    `dev`), against the `mesh=None` step on `dev` over the same padded
+    input: every state leaf and track output bitwise equal, camera by
+    camera. Each shard must have replayed a frame runner of its own (one
+    per slot, on its device) and launched K2 once per frame-round."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.reid import init_reid
+    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, init_yolov5
+    from vehicle_counting_tpu_torch.ops import cascade, crops
+    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, yuv420_content_to_full, yuv420_to_rgb_u8_planar
+    from vehicle_counting_tpu_torch.parallel.cameras import camera_params, join_shards, multicam_batch_step
+    from vehicle_counting_tpu_torch.parallel.cameras import regroup_states
+    from vehicle_counting_tpu_torch.pipeline import step as step_mod
+    from vehicle_counting_tpu_torch.pipeline import upload_shards
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams, TrackerState
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_real = yuv.shape[0]
+    total = n_real + (-n_real) % mesh.size
+    n_local = total // mesh.size
+    net = autoshape_hw(SRC_HW, 640)
+    cfg = YoloConfig(VARIANT, 80)
+    yp_cpu = init_yolov5(torch.Generator().manual_seed(0), cfg)
+    rp, rs = init_reid(torch.Generator().manual_seed(1), device=dev)
+    flat = torch.from_numpy(yuv.reshape((-1,) + yuv.shape[2:]))
+    rgb = yuv420_to_rgb_u8_planar(yuv420_content_to_full(flat, SRC_HW, net)).float() / 255.0
+    conf, lut, gap = _gap_conf(yp_cpu, cfg, rgb, 20 * flat.shape[0])
+    yp, lut = _tree_to(yp_cpu, dev), torch.from_numpy(lut).to(dev)
+    hp = DeepSortParams(tracker=TrackerParams(), num_classes=4)
+    kw = dict(ycfg=cfg, hp=hp, image_size=net, src_hw=SRC_HW, conf_thres=conf, iou_thres=0.45, max_det=300,
+              dtype=torch.float32, frames_format="letterboxed_yuv420")
+    padded = np.zeros((total,) + yuv.shape[1:], np.uint8)
+    padded[:n_real] = yuv
+    valid = np.zeros((total, 2 * b), bool)
+    valid[:n_real] = True
+
+    def run(m):
+        """Both batches over mesh m (None: `dev` alone): [(joined state
+        snapshot, joined outputs)] on the host."""
+        states = regroup_states(init_states(camera_params(hp, total), dev), (total, hp.num_classes))
+        got = []
+        with torch.no_grad():
+            for i in range(2):
+                fr, va = padded[:, i * b:(i + 1) * b], valid[:, i * b:(i + 1) * b]
+                if m is None:
+                    fr, va = torch.from_numpy(fr).to(dev), torch.from_numpy(va).to(dev)
+                else:
+                    fr, va = upload_shards(fr, m), upload_shards(va, m)
+                states, outs = multicam_batch_step(m, yp, rp, rs, states, fr, va, lut, **kw)
+                st = join_shards(states, "cpu")
+                got.append((TrackerState(*(x.clone() for x in st)), join_shards(outs, "cpu")))
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        return got
+
+    want = run(None)
+    step_mod.free_frame_runners()
+    with k2_per_card() as per_card:
+        crops.gather_crops_batch.launches = cascade.cascade_match_classparallel.launches = 0
+        got = run(mesh)
+        launches = {"crops": crops.gather_crops_batch.launches, "cascade": cascade.cascade_match_classparallel.launches}
+    hp_local = camera_params(hp, n_local)
+    runners = {key[3]: r for key, r in step_mod._RUNNERS.items() if key[0] == hp_local}
+    step_mod.free_frame_runners()
+    if sorted(runners) != list(range(mesh.size)) or len({id(r) for r in runners.values()}) != mesh.size:
+        raise AssertionError(f"camera mesh: frame runners by slot {sorted(runners)}, want one per shard of {mesh.size}")
+    if [runners[i].device for i in range(mesh.size)] != list(mesh.devices):
+        raise AssertionError(f"camera mesh: runners on {[str(r.device) for r in runners.values()]}")
+    for i, ((sw, ow), (sg, og)) in enumerate(zip(want, got)):
+        for name, x, y in zip(sw._fields + ow._fields, tuple(sw) + tuple(ow), tuple(sg) + tuple(og)):
+            for c in range(total):
+                if not torch.equal(x[c], y[c]):
+                    raise AssertionError(f"camera mesh {[str(d) for d in mesh.devices]}: batch {i} camera {c} {name} "
+                                         f"differs from the unsharded step on {dev}")
+    rounds = 2 * b
+    if launches["cascade"] != mesh.size * rounds or launches["crops"] <= 0:
+        raise AssertionError(f"camera mesh: launches {launches}, want K2 = {mesh.size} x {rounds} frame-rounds, K1 > 0")
+    want_cards = {str(d): c * rounds for d, c in collections.Counter(mesh.devices).items()}
+    if dict(per_card) != want_cards:
+        raise AssertionError(f"camera mesh: K2 per card {dict(per_card)}, want {want_cards}")
+    tracked = sum(int(o.mask[:n_real].sum()) for _, o in got)
+    if not tracked or any(int(o.mask[n_real:].sum()) for _, o in got):
+        raise AssertionError(f"camera mesh: {tracked} track outputs of the real cameras, or a padded camera tracked")
+    res = {"cameras": n_real, "padded_to": total, "mesh": [str(d) for d in mesh.devices], "b": b, "batches": 2,
+           "runners": mesh.size, "launches": launches, "k2_per_frame_round": launches["cascade"] / rounds,
+           "k2_per_card": dict(per_card), "track_outputs": tracked, "gap": gap}
+    print(f"camera mesh, f32, {n_real} cameras padded to {total} over {res['mesh']}, 2 x B={b}: every state leaf and "
+          f"track output of every camera bitwise == the unsharded step on {dev}; {mesh.size} frame runners, one per "
+          f"shard; {json.dumps(res)}")
+    return res
+
+
+def camera_mesh_cli(dev, tmp, vids, zones, conf, mapping, mesh, mc):
+    """`MultiCamCountingPipeline(mesh=mesh)` over the multi-camera phase's
+    videos at the default config (bf16, B=128), no MP4 pass: each camera's
+    CSV row for row (all columns but color) against the `run --multicam`
+    run of phase (c), K2 launched once per frame-round by each shard, K1
+    launched. A failed camera fails the phase (`run_cli_dir`)."""
+    r = run_cli_dir(dev, tmp, vids, zones, conf, mapping, "out_mc_mesh", multicam=True, mesh=mesh)
+    diff = {cam: _csv_diff(mc_df, r["dfs"][cam]) for cam, mc_df in mc["dfs"].items()}
+    lc = r["launches"]
+    res = {"mesh": [str(d) for d in mesh.devices], "launches": lc, "k2_per_card": r["k2_per_card"],
+           "rows": {cam: len(df) for cam, df in r["dfs"].items()},
+           "rows_differing": {cam: d[0] for cam, d in diff.items()}, "fps": r["fps"]}
+    print(f"MultiCamCountingPipeline over the camera mesh, against `run --multicam` on one card: {json.dumps(res)}")
+    if set(r["dfs"]) != set(mc["dfs"]) or any(d[0] for d in diff.values()):
+        raise AssertionError(f"camera mesh CLI: CSVs differ from the one-card --multicam run: "
+                             f"{json.dumps({c: d for c, d in diff.items() if d[0]}, default=str)}")
+    if lc["cascade"] != mesh.size * mc["rounds"] or lc["crops"] <= 0 or lc["cascade_k3"]:
+        raise AssertionError(f"camera mesh CLI: launches {lc}, want K2 = {mesh.size} x {mc['rounds']} frame-rounds")
+    return res
+
+
+def cameras_over_cards(tmp, path, zones, conf, mapping, n):
+    """(h) of --multi-card: cameras over every card. The f32 step with 2n + 1
+    cameras over the n-card mesh against the unsharded step on cuda:0;
+    `run --multicam --device cuda` (every card) against `--device cuda:0`
+    at f32 over the multi-camera videos, each CSV row for row, K2 per card;
+    the step alone at the main path's shapes on one card against n and
+    against a thread per card, in turns, with each card's busy window
+    (`benchmarks/micro/camera_dispatch.py`); the CLI's camera-frames/s on
+    one card against n, in turns (the default config)."""
+    import torch
+
+    from vehicle_counting_tpu_torch.benchmarks.micro import camera_dispatch
+    from vehicle_counting_tpu_torch.parallel.mesh import make_mesh
+
+    dev, mesh = torch.device("cuda", 0), make_mesh(None, ("cam",))
+    step = check_camera_mesh_step(dev, camera_frames([path], 2 * n + 1, 16), mesh)
+    vids, mc_zones, _ = write_multicam_videos(tmp)
+    runs = {k: run_cli_dir(d, tmp, vids, mc_zones, conf, mapping, f"mc_cards_{k}", multicam=True, config_over=F32)
+            for k, d in (("one", "cuda:0"), ("every", "cuda"))}
+    rounds = -(-max(MC_FRAMES) // int(runs["one"]["batch"])) * int(runs["one"]["batch"])
+    diff = {cam: _csv_diff(df, runs["every"]["dfs"][cam])[0] for cam, df in runs["one"]["dfs"].items()}
+    cli = {"rows": {cam: len(df) for cam, df in runs["one"]["dfs"].items()}, "rows_differing": diff,
+           "launches": {k: r["launches"] for k, r in runs.items()}, "k2_per_card": {k: r["k2_per_card"] for k, r in runs.items()}}
+    print(f"run --multicam --device cuda ({n} cards) against --device cuda:0, f32: {json.dumps(cli)}")
+    want_cards = {str(d): rounds for d in mesh.devices}  # every card's shard replays, padded cameras and all
+    if any(diff.values()) or not sum(cli["rows"].values()):
+        raise AssertionError(f"(h): the CSVs over {n} cards differ from one card's: {diff}")
+    if runs["every"]["k2_per_card"] != want_cards or runs["one"]["k2_per_card"] != {"cuda:0": rounds}:
+        raise AssertionError(f"(h): K2 per card {cli['k2_per_card']}, want {want_cards} over the cards and "
+                             f"{rounds} on cuda:0 alone")
+    ab = camera_dispatch.measure(dev, mesh)
+    print(f"the camera-sharded step alone, bf16, {ab['cameras']} cameras x 4 classes, B={ab['b']}, device-resident "
+          f"frames, one card against {n} (passes) and against a thread per card (threads): {json.dumps(ab)}")
+    fps = {"one": [], "every": []}
+    for i, k in enumerate(("one", "every", "every", "one")):
+        fps[k].append(run_cli_dir("cuda:0" if k == "one" else "cuda", tmp, vids, mc_zones, conf, mapping,
+                                  f"mc_cards_fps{i}", multicam=True)["fps"])
+    print(f"run --multicam camera-frames/s, default config, turns one card, {n} cards, {n} cards, one card: "
+          f"{json.dumps(fps)}")
+    return {"step": step, "cli": cli, "step_ab": ab, "cli_fps": fps}
 
 
 def check_framedp(dev, path, mesh_b=None):
@@ -2443,7 +2657,7 @@ def _serving_config(dev, tmp):
     from vehicle_counting_tpu_torch.benchmarks.load import calibrate_from_det
     from vehicle_counting_tpu_torch.configs import default_config
     from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params, init_yolov5
-    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw
+    from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, content_upload_exact
     from vehicle_counting_tpu_torch.pipeline.step import detect_only_step
     from vehicle_counting_tpu_torch.serving.artifact import serving_frames_shape
 
@@ -2454,7 +2668,8 @@ def _serving_config(dev, tmp):
     frames = torch.from_numpy(np.random.default_rng(0).integers(0, 255, fshape, dtype="uint8")).to(dev)
     with torch.no_grad():
         det = detect_only_step(yp, frames, ycfg=YoloConfig(VARIANT, 80), image_size=net, src_hw=SRC_HW,
-                               conf_thres=0.0, max_det=300, dtype=torch.bfloat16)
+                               conf_thres=0.0, max_det=300, dtype=torch.bfloat16,
+                               content_only=content_upload_exact(SRC_HW, net))
     conf, _, top4 = calibrate_from_det(det, 30)
     settings = default_config().to_dict()
     settings["min_conf"] = conf
@@ -3330,7 +3545,7 @@ def fleet(addr, n, rank, device):
     mine = [rank * FLEET_CAMS + c for c in range(FLEET_CAMS)]
     states = regroup_states(init_states(camera_params(hp, FLEET_CAMS), dev), (FLEET_CAMS, hp.num_classes))
     with torch.no_grad():
-        _, touts = multicam_batch_step(yp, rp, rs, states, torch.stack([frames(g) for g in mine]),
+        _, touts = multicam_batch_step(None, yp, rp, rs, states, torch.stack([frames(g) for g in mine]),
                                        valid.expand(FLEET_CAMS, b).contiguous(), lut, **kw)
     want = {g: serial(g) for g in range(n * FLEET_CAMS)}
     for c, g in enumerate(mine):
@@ -3547,7 +3762,13 @@ def multi_card(argv) -> int:
     current device is cuda:<i> (bit_exact, the same launches, the step's
     memory on that card alone); (f) the data-parallel ReID train step over
     every card against one card, and images/s; (g)
-    `graft_entry.dryrun_multichip` over every card."""
+    `graft_entry.dryrun_multichip` over every card; (h) cameras over every
+    card (`cameras_over_cards`): the f32 camera-sharded step with 2n + 1
+    cameras against the unsharded step, `run --multicam --device cuda`
+    against `--device cuda:0` (CSVs row for row, K2 per card), and one card
+    against n in turns for the step alone (bf16, 4 cameras x 4 classes,
+    B=128, each card's busy window) and for the CLI's camera-frames/s.
+    `--parts h` (any letters) runs only those parts."""
     import torch
 
     n = torch.cuda.device_count()
@@ -3558,34 +3779,45 @@ def multi_card(argv) -> int:
     from vehicle_counting_tpu_torch.parallel.mesh import make_mesh
     from vehicle_counting_tpu_torch.utils.device import card_line
 
+    parts = set(_flag_value("--parts") or "abcdefgh")  # e.g. --parts h: only the cameras over every card
     card = card_line()
     dev = torch.device("cuda", 0)
-    print(f"[cards] {n} x {torch.cuda.get_device_name(0)}; {card}")
+    print(f"[cards] {n} x {torch.cuda.get_device_name(0)}; {card}; parts {''.join(sorted(parts))}")
     _build.load_all(("crops", "cascade", "reid_block"))
     mesh = make_mesh(None, ("frame",))
+    out = {"cards": n, "card": card}
     with tempfile.TemporaryDirectory() as tmp:
         path, zones = write_video(tmp)
         conf, mapping = calibrate(dev, path)
-        phase(f"multi-card (a): the frame-parallel step, shards over {n} cards", card)
-        fp = check_framedp(dev, path, mesh)
-        fp.pop("outputs")
-        phase("multi-card (b): the main path's shapes, one card against every card", card)
-        ab = framedp_production_ab(dev, path, mesh, conf, mapping)
-        phase("multi-card (c): the CLI with --frame_parallel against the default run", card)
-        cli = framedp_cli_ab(dev, tmp, path, zones, conf, mapping)
-        phase("multi-card (e): the serial CLI, detect-only, multicam and serving on cuda:1 against cuda:0, f32", card)
-        card1 = second_card(tmp, path, zones, conf, mapping)
-    phase(f"multi-card (d): the camera fleet, {n} processes over NCCL", card)
-    fl = run_fleet(n)
-    phase(f"multi-card (f): the data-parallel ReID train step over {n} cards against one", card)
-    tr = multi_card_train(n)
-    phase(f"multi-card (g): graft_entry.dryrun_multichip({n})", card)
-    from vehicle_counting_tpu_torch import graft_entry
+        if "a" in parts:
+            phase(f"multi-card (a): the frame-parallel step, shards over {n} cards", card)
+            out["framedp"] = check_framedp(dev, path, mesh)
+            out["framedp"].pop("outputs")
+        if "b" in parts:
+            phase("multi-card (b): the main path's shapes, one card against every card", card)
+            out["main_path_shapes"] = framedp_production_ab(dev, path, mesh, conf, mapping)
+        if "c" in parts:
+            phase("multi-card (c): the CLI with --frame_parallel against the default run", card)
+            out["cli"] = framedp_cli_ab(dev, tmp, path, zones, conf, mapping)
+        if "e" in parts:
+            phase("multi-card (e): the serial CLI, detect-only, multicam and serving on cuda:1 against cuda:0, f32",
+                  card)
+            out["cuda1"] = second_card(tmp, path, zones, conf, mapping)
+        if "h" in parts:
+            phase(f"multi-card (h): cameras over every card ({n})", card)
+            out["cameras"] = cameras_over_cards(tmp, path, zones, conf, mapping, n)
+    if "d" in parts:
+        phase(f"multi-card (d): the camera fleet, {n} processes over NCCL", card)
+        out["fleet"] = run_fleet(n)
+    if "f" in parts:
+        phase(f"multi-card (f): the data-parallel ReID train step over {n} cards against one", card)
+        out["train"] = multi_card_train(n)
+    if "g" in parts:
+        phase(f"multi-card (g): graft_entry.dryrun_multichip({n})", card)
+        from vehicle_counting_tpu_torch import graft_entry
 
-    dry = graft_entry.dryrun_multichip(n)
-    print(json.dumps({"multi_card": {"cards": n, "card": card, "framedp": fp, "main_path_shapes": ab, "cli": cli,
-                                     "fleet": fl, "cuda1": card1, "train": tr, "dryrun": dry}},
-                     default=str))
+        out["dryrun"] = graft_entry.dryrun_multichip(n)
+    print(json.dumps({"multi_card": out}, default=str))
     return 0
 
 
@@ -3722,6 +3954,12 @@ def main() -> int:
         mc_parity = check_multicam_parity(dev, mc_paths)
         phase("multicam (c): the CLI with --multicam, against the serial CLI", card)
         mc = run_multicam_cli(dev, tmp, mc_vids, mc_zones, conf, mapping)
+        phase("camera mesh on one card: the camera-sharded step and pipeline over [cuda:0, cuda:0]", card)
+        from vehicle_counting_tpu_torch.parallel.mesh import DeviceMesh
+
+        cam_mesh = DeviceMesh((dev, dev), ("cam",))
+        cm = {"step": check_camera_mesh_step(dev, camera_frames(mc_paths, 3, 16), cam_mesh),
+              "cli": camera_mesh_cli(dev, tmp, mc_vids, mc_zones, conf, mapping, cam_mesh, mc)}
         phase("framedp (a), (b): the frame-parallel step on one card, one shard and two", card)
         fp = check_framedp(dev, path)
         phase("framedp (c): the CLI with --frame_parallel", card)
@@ -3759,6 +3997,7 @@ def main() -> int:
              launches_bench=launches_bench["crops"], launches_stage_bench=launches_stage["crops"],
              launches_raw_rgb=launches_raw["crops"], launches_multicam=mc["launches"]["crops"], source_720p=k1_src,
              launches_framedp=fp["launches"]["crops"], launches_framedp_per_shard=fp["k1_per_shard"],
+             launches_camera_mesh=cm["step"]["launches"]["crops"],
              launches_serving_verify=serve["verify"]["launches"]["K1"], **k1),
         dict(name="cascade_match", route="cuda", source="vehicle_counting_tpu_torch/csrc/cascade.cu",
              replaces="vehicle_counting_tpu/ops/pallas/cascade.py:887", launches=launches["cascade"],
@@ -3768,6 +4007,9 @@ def main() -> int:
              launches_multicam=mc["launches"]["cascade"], multicam_frame_rounds=mc["rounds"],
              launches_multicam_serial=mc["launches_serial"]["cascade"], camera_axis=k2cam,
              multicam_replay=mc_ab["replay"], launches_framedp=fp["launches"]["cascade"],
+             launches_camera_mesh=cm["step"]["launches"]["cascade"],
+             camera_mesh_per_frame_round=cm["step"]["k2_per_frame_round"],
+             launches_camera_mesh_cli=cm["cli"]["launches"]["cascade"],
              launches_serving_verify=serve["verify"]["launches"]["K2"], **k2),
         dict(name="cascade_match_batched", route="cuda", source="vehicle_counting_tpu_torch/csrc/cascade.cu",
              replaces="vehicle_counting_tpu/ops/pallas/cascade.py:379", launches=sc["launches_k2_route"]["cascade_k3"],
@@ -3812,6 +4054,7 @@ def main() -> int:
     print(f"multi-camera f32 parity: {json.dumps(mc_parity)} [{card}]")
     print(f"multi-camera CLI camera-frames/s {json.dumps(mc['fps'])}, wall s {json.dumps(mc['wall_s'])}, launches "
           f"{json.dumps(mc['launches'])}, CSV vs serial {json.dumps(mc['csv_vs_serial'], default=str)} [{card}]")
+    print(f"camera mesh on one card: step {json.dumps(cm['step'])}; pipeline {json.dumps(cm['cli'])} [{card}]")
     print(f"framedp on one card, f32 B={fp['b']}: serial / two shards ms per batch {json.dumps(fp['ms_per_batch'])}, "
           f"K1 per shard {fp['k1_per_shard']}, K2 {fp['launches']['cascade']} [{card}]")
     print(f"--frame_parallel CLI: {json.dumps(fp_cli)} [{card}]")

@@ -59,7 +59,7 @@ def test_detect_only_step_matches_jax(src_hw):
     want = j_detect_only(yp, jnp.asarray(batches[0]), ycfg=jcfg_y, dtype=jnp.float32, content_only=exact, **kw)
     with torch.no_grad():
         got = detect_only_step(tp, torch.from_numpy(batches[0]), ycfg=YoloConfig("yolov5n", 80), dtype=torch.float32,
-                               **kw)
+                               content_only=exact, **kw)
     _assert_detections_equal(got, want)
 
 

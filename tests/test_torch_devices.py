@@ -105,13 +105,13 @@ def test_multicam_group_enters_the_pipelines_device(rec, monkeypatch, tmp_path):
     cfg, cam = _configs(zones)
     real = cameras.make_multicam_step
 
-    def make(**kw):
-        return rec.probe(real(**kw), "multicam")
+    def make(mesh, **kw):
+        return rec.probe(real(mesh, **kw), "multicam")
 
     monkeypatch.setattr(cameras, "make_multicam_step", make)
     res = MultiCamCountingPipeline(_args(vids, tmp_path / "out"), cfg, cam).run(visualize=False)
     assert all(r["error"] is None for r in res)
-    assert rec.entered == ["cpu"]  # one group, its device
+    assert rec.entered == ["cpu"] * 4  # one group, its mesh's device; the step's three passes, its shard's
     assert rec.launches == [("multicam", "cpu")]
 
 

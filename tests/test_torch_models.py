@@ -79,7 +79,7 @@ def test_layers_match():
 def test_yolo_heads_and_decode_match(yolo_n, images_and_heads):
     cfg, jp, tp = yolo_n
     imgs, jh = images_and_heads
-    th = tyolo.yolov5_forward(tp, torch.from_numpy(imgs))
+    th = tyolo.yolov5_forward(tp, torch.from_numpy(imgs), tyolo.YoloConfig("yolov5n", 80), dtype=torch.float32)
     assert [tuple(h.shape) for h in th] == [h.shape for h in jh]
     for a, b in zip(th, jh):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=CONV_TOL, atol=CONV_TOL)
@@ -149,6 +149,6 @@ def test_reid_embeddings_match():
     tp, ts = reid_params_from_jax(_np(jp), _np(js))
     crops = rng.standard_normal((5, 50, 50, 3)).astype(np.float32)
     j = jreid.reid_embed(jp, js, jnp.asarray(crops))
-    t = treid.reid_forward(tp, ts, torch.from_numpy(crops))
+    t = treid.reid_embed(tp, ts, torch.from_numpy(crops))
     assert t.shape == (5, 512)
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4, atol=1e-4)

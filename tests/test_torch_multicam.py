@@ -101,7 +101,7 @@ def _port_multicam(world):
     with torch.no_grad():
         for frames, v in zip(rounds, valid):
             states, outs = multicam_batch_step(
-                tp, trp, trs, states, torch.from_numpy(frames), torch.from_numpy(v), torch.from_numpy(lut),
+                None, tp, trp, trs, states, torch.from_numpy(frames), torch.from_numpy(v), torch.from_numpy(lut),
                 ycfg=YoloConfig("yolov5n", 80), hp=hp, dtype=torch.float32, **kw)
             got.append((TrackerState(*(x.clone() for x in states)), outs))
     return got, states
@@ -197,7 +197,7 @@ def test_step_builder_is_memoized():
     another one."""
     kw = dict(ycfg=YoloConfig("yolov5n", 8), hp=DeepSortParams(tracker=TrackerParams(capacity=8), num_classes=2),
               image_size=(96, 96), src_hw=(80, 160))
-    assert make_multicam_step(**kw) is make_multicam_step(**dict(kw, ycfg=YoloConfig("yolov5n", 8)))
-    assert make_multicam_step(**kw) is not make_multicam_step(**kw, dtype=torch.float32)
+    assert make_multicam_step(None, **kw) is make_multicam_step(None, **dict(kw, ycfg=YoloConfig("yolov5n", 8)))
+    assert make_multicam_step(None, **kw) is not make_multicam_step(None, **kw, dtype=torch.float32)
     jkw = dict(ycfg=JYoloConfig("yolov5n", 8), hp=JDP(tracker=JTP(capacity=8), num_classes=2), image_size=(96, 96), src_hw=(80, 160))
     assert j_make_step(make_mesh(1, axis_names=("cam",)), **jkw) is j_make_step(make_mesh(1, axis_names=("cam",)), **jkw)

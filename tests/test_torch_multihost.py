@@ -126,7 +126,7 @@ def _worker(coordinator: str, num_processes: int, pid: int) -> None:
     mine = [pid * N_LOCAL + c for c in range(N_LOCAL)]
     states = regroup_states(init_states(camera_params(hp, N_LOCAL)), (N_LOCAL, hp.num_classes))
     with torch.no_grad():
-        _, touts = multicam_batch_step(yp, rp, rs, states, torch.stack([cam_frames(g) for g in mine]),
+        _, touts = multicam_batch_step(None, yp, rp, rs, states, torch.stack([cam_frames(g) for g in mine]),
                                        torch.ones((N_LOCAL, b), dtype=torch.bool), lut, **kw)
     for c, g in enumerate(mine):
         want = oracle(g)

@@ -133,3 +133,178 @@ def test_import_is_cheap():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+# ---------------------------------------------------------------------------
+# call parity: a call written for a JAX function is a call of the port's
+# ---------------------------------------------------------------------------
+#
+# Every public top-level function of a JAX module whose port counterpart
+# (the same path under the port's package) defines the same name, which
+# takes in every function a JAX `__init__.py` exports: its parameters'
+# names, kinds (positional or keyword-only) and defaults, read from both
+# sources with `ast`, must match. Defaults compare as literals (str, int,
+# float, bool, None, tuples) or, where they are expressions, as source
+# text. Three departures are what PyTorch's idiom needs, and no others
+# pass unlisted:
+#
+# 1. A JAX PRNG key is a `torch.Generator` in the port, named `gen`; where
+#    the port's generator may be None (no random draw), a JAX call, which
+#    always passes its key, still works. {function: (JAX name, port name)}
+KEY_TO_GENERATOR = {
+    "models/layers.py::init_conv": ("key", "gen"),
+    "models/yolo.py::init_yolov5": ("key", "gen"),
+    "models/reid.py::init_reid": ("key", "gen"),
+    "train/augment.py::random_flip": ("key", "gen"),
+    "train/augment.py::random_rotate": ("key", "gen"),
+    "train/augment.py::augment_batch": ("key", "gen"),
+    "train/reid_train.py::create_train_state": ("key", "gen"),
+    "train/reid_train.py::train_step": ("step_key", "gen"),
+}
+# 2. A trailing keyword the port adds after all of JAX's parameters, with a
+#    default, naming where the work runs: a torch device (JAX places arrays
+#    by its default device or a sharding) or a mesh (JAX's is implicit in
+#    its shardings).
+TRAILING_PLACEMENT = {"device", "device_type", "mesh"}
+# 3. A dtype default: `jnp.<name>` in JAX is `torch.<name>` in the port
+#    (checked by `_default`).
+#
+# Every other departure is listed here, by the parameters it concerns, with
+# the reason the port keeps it. A JAX call of each still works unless its
+# reason says otherwise.
+OTHER_DEPARTURES = {
+    # K1's wrapper takes the planar [B, 3, H, W] frames its kernel reads (as
+    # JAX's kernel entry `ops/pallas/crops.py::gather_crops_batch_pallas`
+    # does), and only the ReID crop size; JAX's XLA gather of the same name
+    # takes interleaved frames and any size. A JAX call with interleaved
+    # frames does NOT work: use `gather_crops` per frame, or
+    # `tracking/deepsort.py::embed_detections_batch`, which take both.
+    "ops/crops.py::gather_crops_batch": {"frames", "frames_planar", "out_size", "dtype"},
+    # the inference embed takes the convolutions' compute dtype (None: f32,
+    # JAX's jitted `reid_embed` computes in f32 always)
+    "models/reid.py::reid_embed": {"dtype"},
+    # a tracker state for `num_classes` classes, or one class's without the
+    # class axis (None: JAX's call)
+    "tracking/tracker.py::init_state": {"num_classes"},
+    # the upload's CUDA-event timing, for `bench`'s GB/s (None: JAX's call)
+    "utils/transfer.py::parallel_device_put": {"timing"},
+    # the port writes its traces under the working directory, not /tmp
+    "utils/profiling.py::trace": {"log_dir"},
+    # the CLIs take their arguments, so tests run them in-process (None:
+    # sys.argv, JAX's call)
+    "tools/convert_weights.py::main": {"argv"},
+    "train/reid_cli.py::main": {"argv"},
+}
+
+
+def _default(node):
+    if node is None:
+        return "<required>"
+    try:
+        return repr(ast.literal_eval(node))
+    except ValueError:
+        text = ast.unparse(node)
+        for lib in ("jnp.", "torch."):  # 3. dtypes
+            if text.startswith(lib) and text[len(lib):].isidentifier():
+                return "dtype:" + text[len(lib):]
+        return text
+
+
+def _params(fn):
+    """[(name, kind, default)] of a FunctionDef, in order."""
+    a = fn.args
+    pos = a.posonlyargs + a.args
+    defaults = [None] * (len(pos) - len(a.defaults)) + a.defaults
+    out = [(p.arg, "positional", _default(d)) for p, d in zip(pos, defaults)]
+    if a.vararg:
+        out.append(("*" + a.vararg.arg, "var", ""))
+    out += [(p.arg, "keyword", _default(d)) for p, d in zip(a.kwonlyargs, a.kw_defaults)]
+    if a.kwarg:
+        out.append(("**" + a.kwarg.arg, "var", ""))
+    return out
+
+
+def _defs(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    return {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")}
+
+
+def _shared_modules():
+    """Relative paths of the JAX modules whose port counterpart exists."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(REPO, JAX_PKG, "**", "*.py"), recursive=True)):
+        rel = os.path.relpath(path, os.path.join(REPO, JAX_PKG))
+        if os.path.exists(os.path.join(REPO, PORT_PKG, rel)) and _defs(path):
+            out.append(rel.replace(os.sep, "/"))
+    return out
+
+
+def _departures(rel):
+    """{function: the parameter names where the port's signature departs
+    from JAX's past the three idiom rules} for one module, over every
+    function both define."""
+    jax_defs = _defs(os.path.join(REPO, JAX_PKG, rel))
+    port_defs = _defs(os.path.join(REPO, PORT_PKG, rel))
+    out = {}
+    for name in sorted(set(jax_defs) & set(port_defs)):
+        key = f"{rel}::{name}"
+        want, have = _params(jax_defs[name]), _params(port_defs[name])
+        if key in KEY_TO_GENERATOR:
+            jax_name, port_name = KEY_TO_GENERATOR[key]
+            want = [(port_name, k, d) if n == jax_name else (n, k, d) for n, k, d in want]
+            have = [(n, k, want[i][2] if n == port_name and d == "None" and i < len(want) else d)
+                    for i, (n, k, d) in enumerate(have)]
+        if have[:len(want)] == want:  # 2. trailing placement keywords
+            have = want + [p for p in have[len(want):] if p[0] not in TRAILING_PLACEMENT or p[2] == "<required>"]
+        differ = {n for n, *_ in set(want) ^ set(have)}
+        if differ:
+            out[key] = differ
+    return out
+
+
+def test_the_signature_reader_sees_a_changed_default():
+    """The guard's reader on two small sources: a default put back to
+    another literal is a departure, a jnp/torch dtype and a trailing device
+    are not."""
+    jax_fn = ast.parse("def f(x, *, fmt='raw_rgb', dtype=jnp.bfloat16, max_det=300): pass").body[0]
+    for port_src, differ in (("def f(x, *, fmt='raw_rgb', dtype=torch.bfloat16, max_det=300, device=None): pass", set()),
+                             ("def f(x, *, fmt='letterboxed_yuv420', dtype=torch.bfloat16, max_det=300): pass", {"fmt"}),
+                             ("def f(x, fmt='raw_rgb', *, dtype=torch.bfloat16, max_det=300): pass", {"fmt"}),
+                             ("def f(x, *, dtype=torch.bfloat16, max_det=300): pass", {"fmt"})):
+        want, have = _params(jax_fn), _params(ast.parse(port_src).body[0])
+        if have[:len(want)] == want:
+            have = want + [p for p in have[len(want):] if p[0] not in TRAILING_PLACEMENT]
+        assert {n for n, *_ in set(want) ^ set(have)} == differ, port_src
+
+
+@pytest.mark.parametrize("rel", _shared_modules())
+def test_jax_calls_are_port_calls(rel):
+    """Every function both packages define in this module takes JAX's call:
+    the same parameter names, kinds and defaults, past the three idiom
+    rules and the listed departures (whose parameters must be the ones that
+    still depart, so the list stays exact)."""
+    got = _departures(rel)
+    listed = {k: v for k, v in OTHER_DEPARTURES.items() if k.startswith(rel + "::")}
+    assert got == listed
+
+
+def test_the_guard_covers_the_exported_functions():
+    """Every function a JAX `__init__.py` exports from a module the port
+    also has is among those the guard compares, and so are the step
+    functions no `__init__` exports."""
+    covered = {f"{rel}::{name}" for rel in _shared_modules()
+               for name in set(_defs(os.path.join(REPO, JAX_PKG, rel))) & set(_defs(os.path.join(REPO, PORT_PKG, rel)))}
+    exported = set()
+    for sub in _jax_inits():
+        for name, module in _public_names(sub).items():
+            if module is None:
+                continue
+            rel = module[len(JAX_PKG) + 1:].replace(".", "/") + ".py"
+            path = os.path.join(REPO, JAX_PKG, rel)
+            if os.path.exists(path) and name in _defs(path) and name in _defs(os.path.join(REPO, PORT_PKG, rel)):
+                exported.add(f"{rel}::{name}")
+    assert len(exported) > 40 and exported <= covered
+    assert {"pipeline/step.py::pipeline_batch_step", "pipeline/step.py::detect_embed_core",
+            "pipeline/step.py::detect_only_step", "tracking/assignment.py::matching_cost_matrix",
+            "models/reid.py::reid_forward", "parallel/cameras.py::make_multicam_step"} <= covered

@@ -78,7 +78,7 @@ def test_reid_forward_with_block_matches_jax(reid_weights, monkeypatch):
     monkeypatch.setattr(treid, "FORCE_REID_BLOCK_KERNEL", True)
     calls = []
     monkeypatch.setattr(treid, "reid_block64", lambda *a: calls.append(1) or trb.reid_block64(*a))
-    got = treid.reid_forward(tp, ts, torch.from_numpy(crops))
+    got = treid.reid_embed(tp, ts, torch.from_numpy(crops))
     assert len(calls) == 2  # layer1_0 and layer1_1
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
@@ -93,7 +93,7 @@ def test_reid_forward_with_block_after_in_place_update_matches_jax(reid_weights,
     crops = torch.from_numpy(np.random.default_rng(36).standard_normal((4, 50, 50, 3)).astype(np.float32))
     monkeypatch.setattr(jreid, "FORCE_PALLAS_REID_BLOCK", True)
     monkeypatch.setattr(treid, "FORCE_REID_BLOCK_KERNEL", True)
-    before = treid.reid_forward(tp, ts, crops)
+    before = treid.reid_embed(tp, ts, crops)
     delta = (np.random.default_rng(37).standard_normal((3, 3, 64, 64)) * 0.05).astype(np.float32)  # HWIO
     w = tp["layer1_0"]["conv1"]["w"]
     version = w._version
@@ -102,7 +102,7 @@ def test_reid_forward_with_block_after_in_place_update_matches_jax(reid_weights,
     jl = jp["layer1_0"]
     jp = {**jp, "layer1_0": {**jl, "conv1": {**jl["conv1"], "w": jl["conv1"]["w"] + delta}}}
     want, _ = jreid.reid_forward(jp, js, jnp.asarray(crops.numpy()), train=False, reid=True)
-    got = treid.reid_forward(tp, ts, crops)
+    got = treid.reid_embed(tp, ts, crops)
     assert not np.allclose(got.numpy(), before.numpy(), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
@@ -121,7 +121,7 @@ def test_block_switch(reid_weights, monkeypatch, switch, env, expect):
         monkeypatch.setenv("FORCE_PALLAS_REID_BLOCK", env)
     calls = []
     monkeypatch.setattr(treid, "reid_block64", lambda *a: calls.append(1) or trb.reid_block64(*a))
-    treid.reid_forward(tp, ts, torch.zeros((2, 50, 50, 3)))
+    treid.reid_embed(tp, ts, torch.zeros((2, 50, 50, 3)))
     assert len(calls) == expect
 
 

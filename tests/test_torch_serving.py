@@ -36,8 +36,9 @@ from vehicle_counting_tpu.tracking import init_states as j_init
 from vehicle_counting_tpu_torch import _build
 from vehicle_counting_tpu_torch.models.convert import reid_params_from_jax, yolo_params_from_jax
 from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params
+from vehicle_counting_tpu_torch.ops.letterbox import content_upload_exact
 from vehicle_counting_tpu_torch.parallel import make_framedp_step, make_mesh, make_multicam_step
-from vehicle_counting_tpu_torch.parallel.cameras import camera_params, regroup_states
+from vehicle_counting_tpu_torch.parallel.cameras import camera_params, join_shards, regroup_states
 from vehicle_counting_tpu_torch.pipeline.step import detect_only_step, pipeline_batch_step
 from vehicle_counting_tpu_torch.serving import (
     ServingArtifact,
@@ -216,7 +217,8 @@ def test_detect_step_export_matches_live(tiny, tmp_path):
         config={"batch": B, "src_hw": list(SRC), "image_size": list(NET)}, weights={"yolo": tp}))
     frames = _batches(1)[0]
     with torch.no_grad():
-        want = detect_only_step(tp, frames, ycfg=YoloConfig("yolov5n", 80), dtype=torch.float32, **kw)
+        want = detect_only_step(tp, frames, ycfg=YoloConfig("yolov5n", 80), dtype=torch.float32,
+                                content_only=content_upload_exact(SRC, NET), **kw)
         got = art.detect_step(art.load_weights()["yolo"], frames)
     assert int(got["valid"].sum()) > 0
     assert all(torch.equal(want[k], got[k]) for k in want)
@@ -236,7 +238,7 @@ def test_multicam_export_roundtrip(tiny, tmp_path):
     exp = export_multicam_step(tp, trp, trs, n_cameras=n_cam, batch=B, **skw)
     art = ServingArtifact.load(save_artifact(str(tmp_path / "mc"), exported={"multicam_step": exp},
                                              ycfg=YoloConfig("yolov5n", 80), hp=hp))
-    live = make_multicam_step(**skw)
+    live = make_multicam_step(None, **skw)
     fresh = lambda: regroup_states(init_states(camera_params(hp, n_cam)), (n_cam, C))
     st_l, st_a, tracked = fresh(), fresh(), 0
     lut_t = torch.from_numpy(lut)
@@ -253,6 +255,38 @@ def test_multicam_export_roundtrip(tiny, tmp_path):
             tracked += int(out_a.mask.sum())
     assert tracked > 0
     assert art.manifest["functions"]["multicam_step"]["in_avals"][4][0][0][:2] == [n_cam, C]
+
+
+def test_multicam_export_over_a_mesh_roundtrip(tiny, tmp_path):
+    """The camera-sharded step over a 2-entry CPU mesh, 4 cameras x B: the
+    artifact records 2 devices, rebuilds its mesh at load and equals the
+    live step over the same mesh, fed its per-shard states back; 3 cameras
+    do not split over 2 devices and the export raises."""
+    _, _, (tp, trp, trs), lut, kw = tiny
+    hp, n_cam = _hp(), 4
+    skw = dict(ycfg=YoloConfig("yolov5n", 80), hp=hp, dtype=torch.float32, frames_format="letterboxed_yuv420", **kw)
+    mesh = make_mesh(2, ("cam",), "cpu")
+    exp = export_multicam_step(tp, trp, trs, n_cameras=n_cam, batch=B, devices=mesh.devices, **skw)
+    art = ServingArtifact.load(save_artifact(str(tmp_path / "mcm"), exported={"multicam_step": exp},
+                                             ycfg=YoloConfig("yolov5n", 80), hp=hp))
+    assert art.manifest["functions"]["multicam_step"]["nr_devices"] == 2
+    live = make_multicam_step(mesh, **skw)
+    fresh = lambda: regroup_states(init_states(camera_params(hp, n_cam)), (n_cam, C))
+    st_l, st_a, tracked = fresh(), fresh(), 0
+    lut_t = torch.from_numpy(lut)
+    scene = _batches(n_cam * 2)  # camera i's batch r is the scene's batch r * n_cam + i
+    with torch.no_grad():
+        for r in range(2):
+            frames, valid = torch.stack(scene[r * n_cam:(r + 1) * n_cam]), torch.ones((n_cam, B), dtype=torch.bool)
+            st_l, out_l = live(tp, trp, trs, lut_t, st_l, frames, valid)
+            st_a, out_a = art.call("multicam_step", tp, trp, trs, lut_t, st_a, frames, valid)
+            assert isinstance(st_a, tuple) and len(st_a) == 2
+            assert all(torch.equal(a, b) for a, b in zip(join_shards(out_l), join_shards(out_a)))
+            assert all(torch.equal(a, b) for a, b in zip(join_shards(st_l), join_shards(st_a)))
+            tracked += int(join_shards(out_a).mask.sum())
+    assert tracked > 0
+    with pytest.raises(ValueError, match="not divisible by 2 devices"):
+        export_multicam_step(tp, trp, trs, n_cameras=3, batch=B, devices=mesh.devices, **skw)
 
 
 def test_framedp_export_roundtrip(tiny, tmp_path):

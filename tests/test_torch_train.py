@@ -255,7 +255,7 @@ def test_eval_step_and_features_match_jax(jax_run):
     feats = P.extract_features(params, stats, im)
     np.testing.assert_allclose(feats.numpy(), jax_run["feats"], rtol=RTOL, atol=ATOL)
     # the inference embed path, bitwise
-    assert torch.equal(feats, reid_mod.reid_forward(params, stats, torch.from_numpy(im)))
+    assert torch.equal(feats, reid_mod.reid_embed(params, stats, torch.from_numpy(im)))
 
 
 def test_top1_retrieval_accuracy_matches_jax(jax_run):

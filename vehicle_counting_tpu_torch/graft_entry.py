@@ -12,9 +12,9 @@ package's):
     serial counterpart:
       1. the data-parallel ReID `train_step` (batch split by device, the
          whole batch's BN statistics and loss) against the one-device step;
-      2. the multi-camera detect+track step (`parallel/cameras.py`) at the
-         production `TrackerParams` (capacity 64, budget 60, max_age 30,
-         4 classes), n cameras on the mesh's first device, against each
+      2. the camera-sharded detect+track step (`parallel/cameras.py`) at
+         the production `TrackerParams` (capacity 64, budget 60, max_age
+         30, 4 classes), n cameras sharded over the n devices, against each
          camera's serial `pipeline_batch_step` on its own device of the
          mesh;
       3. the YOLOv5s detect step on 720p frames split by frame, one frame
@@ -102,14 +102,16 @@ def dp_train_check(mesh, dtype=torch.float32):
 
 
 def multicam_check(mesh):
-    """The multi-camera detect+track step for mesh.size cameras on the
-    mesh's first device at the production tracker shapes, against each
-    camera's serial step on its own device of the mesh (f32, TF32 off):
-    track ids, mask and boxes equal. Each camera shows one random image b
-    times and every detection passes the thresholds, so tracks confirm."""
+    """The camera-sharded detect+track step for mesh.size cameras sharded
+    over the mesh (camera i on device i) at the production tracker shapes,
+    against each camera's serial step on its own device of the mesh (f32,
+    TF32 off): track ids, mask and boxes equal. Each camera shows one
+    random image b times and every detection passes the thresholds, so
+    tracks confirm."""
     from vehicle_counting_tpu_torch.models.reid import init_reid
     from vehicle_counting_tpu_torch.models.yolo import YoloConfig, init_yolov5
-    from vehicle_counting_tpu_torch.parallel.cameras import camera_params, multicam_batch_step, regroup_states
+    from vehicle_counting_tpu_torch.parallel.cameras import camera_params, join_shards, multicam_batch_step
+    from vehicle_counting_tpu_torch.parallel.cameras import regroup_states
     from vehicle_counting_tpu_torch.parallel.mesh import tree_to
     from vehicle_counting_tpu_torch.pipeline.step import pipeline_batch_step
     from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
@@ -132,8 +134,9 @@ def multicam_check(mesh):
     with on_device(d0), torch.no_grad():
         states = regroup_states(init_states(camera_params(hp, n_cam), d0), (n_cam, hp.num_classes))
         w0 = tree_to((yp, rp, rs, lut), d0)
-        _, touts = multicam_batch_step(*w0[:3], states, frames.to(d0), valid.to(d0), w0[3], **kw)
-        touts = type(touts)(*(x.clone() for x in touts))
+        # the initial state and the frames split over the mesh, camera i to device i
+        _, touts = multicam_batch_step(mesh, *w0[:3], states, frames, valid, w0[3], **kw)
+        touts = join_shards(touts, "cpu")
     detections = 0
     for c, dev in enumerate(mesh.devices):
         with on_device(dev), torch.no_grad():

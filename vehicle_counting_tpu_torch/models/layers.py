@@ -32,8 +32,11 @@ def conv_block_nchw(params, x, *, stride=1, padding=None, groups=1, act=True):
     return F.silu(y) if act else y
 
 
-def conv_block(params, x, *, stride=1, padding=None, groups=1, act=True):
-    """`conv_block_nchw` with the JAX layout: x [B, H, W, Cin] -> [B, H', W', Cout]."""
+def conv_block(params, x, *, stride=1, padding=None, groups=1, act=True, dtype=None):
+    """`conv_block_nchw` with the JAX layout: x [B, H, W, Cin] -> [B, H', W', Cout],
+    in the compute dtype `dtype` (None: the weights')."""
+    if dtype is not None:
+        params = {k: v.to(dtype) for k, v in params.items()}
     y = conv_block_nchw(params, x.permute(0, 3, 1, 2), stride=stride,
                         padding=padding, groups=groups, act=act)
     return y.permute(0, 2, 3, 1)

@@ -3,9 +3,10 @@
 Port of `vehicle_counting_tpu/models/reid.py`: conv3x3(+bias)+BN+ReLU+
 maxpool(3,2,1) stem, 4 stages of 2 residual BasicBlocks (64->64,
 64->128/s2, 128->256/s2, 256->512/s2), 4x4 average pool, then either an
-L2-normalised 512-d embedding (`reid_forward`, the inference path) or the
-512->256->num_classes classifier head with BN1d and dropout that training
-uses (`reid_apply`, the JAX `reid_forward` with its whole contract).
+L2-normalised 512-d embedding (`reid_embed`, the tracker's inference
+path) or the 512->256->num_classes classifier head with BN1d and dropout
+that training uses (`reid_forward`, JAX's call, over `reid_apply`, which
+also takes a data-parallel batch's shards).
 BatchNorm stays explicit (running stats, f32), as in the reference; in
 training it normalises with the batch statistics, over every shard of a
 data-parallel batch (`reid_apply` on a list of shards). The TPU-only
@@ -166,9 +167,25 @@ def reid_forward_nchw(params, stats, x: torch.Tensor, dtype=torch.float32) -> to
     return _l2_normalise(_trunk(params, stats, x, dtype, parity=False))
 
 
-def reid_forward(params, stats, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """JAX layout: x [N, 50, 50, 3] normalised crops -> [N, 512] embeddings."""
-    return reid_forward_nchw(params, stats, x.permute(0, 3, 1, 2), dtype)
+def reid_embed(params, stats, crops: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The JAX `reid_embed`: crops [N, 50, 50, 3] normalised -> L2-normalised
+    [N, 512] f32 embeddings, the convolutions in `dtype` (None: f32). The
+    embed of the tracker's step."""
+    return reid_forward_nchw(params, stats, crops.permute(0, 3, 1, 2), torch.float32 if dtype is None else dtype)
+
+
+def reid_forward(params, stats, x, *, train: bool = False, reid: bool = True, dropout_key=None, dtype=None):
+    """The JAX call and contract: x [B, 50, 50, 3] normalised crops ->
+    (out, new_stats), out the [B, 512] embeddings (reid=True) or the
+    [B, num_classes] logits (reid=False); train=True uses the batch
+    statistics and returns the updated running stats. `dropout_key` is a
+    torch.Generator (the JAX PRNG key's place) that draws the head's
+    dropout mask in training. `dtype` is the convolutions' compute dtype at
+    inference (None: f32); training runs in f32, as the JAX trainer calls
+    it, and takes no other. See `reid_apply`."""
+    if train and dtype not in (None, torch.float32):
+        raise ValueError(f"reid_forward trains in f32; dtype={dtype} is taken at inference only")
+    return reid_apply(params, stats, x, train=train, reid=reid, dropout=dropout_key, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +268,7 @@ def _trunk_train(pd, stats, xs):
     return _each(lambda t: F.avg_pool2d(t, 4, 1).flatten(1), y), new_stats
 
 
-def reid_apply(params, stats, x, *, train: bool = False, reid: bool = True, dropout=None):
+def reid_apply(params, stats, x, *, train: bool = False, reid: bool = True, dropout=None, dtype=None):
     """The JAX `reid_forward(params, stats, x, train=, reid=, dropout_key=)`:
     x [B, 50, 50, 3] normalised crops, or a list of such shards on their
     devices (one batch split for data parallelism: the BN statistics and
@@ -262,10 +279,11 @@ def reid_apply(params, stats, x, *, train: bool = False, reid: bool = True, drop
     train=True normalises with the batch statistics and returns the
     updated running stats; `dropout` (a torch.Generator on the first
     shard's device, or None for no dropout) draws the head's keep mask.
-    train=False is the inference path in f32, through K5 when the fused
-    block is switched on (its f32 parity mode on the card, as JAX's
-    interpret mode). Each shard runs with weights copied to its device:
-    autograd takes the gradients back to `params`."""
+    train=False is the inference path, the convolutions in `dtype` (None:
+    f32), through K5 when the fused block is switched on (in f32 its
+    parity mode on the card, as JAX's interpret mode). Each shard runs with
+    weights copied to its device: autograd takes the gradients back to
+    `params`."""
     shards = list(x) if isinstance(x, (list, tuple)) else [x]
     pdev = _leaf(params).device
     pd = [params if s.device == pdev else _tree_to(params, s.device) for s in shards]
@@ -274,7 +292,8 @@ def reid_apply(params, stats, x, *, train: bool = False, reid: bool = True, drop
         embs, new_stats = _trunk_train(pd, stats, xs)
     else:
         sd = [stats if s.device == pdev else _tree_to(stats, s.device) for s in shards]
-        embs = _each(lambda t, p, st: _trunk(p, st, t, torch.float32, parity=True), xs, pd, sd)
+        cdt = torch.float32 if dtype is None else dtype
+        embs = _each(lambda t, p, st: _trunk(p, st, t, cdt, parity=cdt == torch.float32), xs, pd, sd)
         new_stats = dict(stats)  # inference: the running stats pass through
     if reid:
         if "fc1" in stats:

@@ -169,8 +169,23 @@ def yolov5_forward_nchw(params, images: torch.Tensor) -> List[torch.Tensor]:
     return [conv_block_nchw(m, o, act=False) for m, o in zip(L["24"]["m"], (o3, o4, o5))]
 
 
-def yolov5_forward(params, images: torch.Tensor) -> List[torch.Tensor]:
-    """JAX layout: images [B, H, W, 3] in [0, 1] -> heads [B, Hs, Ws, na*no]."""
+def _check_params(params, cfg: YoloConfig) -> None:
+    """Raise unless `params` are a `cfg` network: the stem's width and the
+    three heads' na * no channels."""
+    stem = params["0"]["w"].shape[0]
+    heads = [m["w"].shape[0] for m in params["24"]["m"]]
+    if stem != cfg.width(64) or heads != [cfg.na * cfg.no] * len(cfg.strides):
+        raise ValueError(f"params (stem {stem} channels, heads {heads}) are not a {cfg.variant} with "
+                         f"{cfg.num_classes} classes (stem {cfg.width(64)}, heads {cfg.na * cfg.no} each)")
+
+
+def yolov5_forward(params, images: torch.Tensor, cfg: YoloConfig, *, dtype=torch.bfloat16) -> List[torch.Tensor]:
+    """The JAX call: images [B, H, W, 3] in [0, 1] -> heads [B, Hs, Ws,
+    na*no] per scale, in the compute dtype `dtype` (None: the params'
+    own). `cfg` is checked against the params."""
+    _check_params(params, cfg)
+    if dtype is not None:
+        params = cast_params(params, dtype)
     heads = yolov5_forward_nchw(params, images.permute(0, 3, 1, 2))
     return [h.permute(0, 2, 3, 1) for h in heads]
 

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from vehicle_counting_tpu_torch import _build
-from vehicle_counting_tpu_torch.tracking.assignment import matching_cost_matrix, solve_assignment_sub
+from vehicle_counting_tpu_torch.tracking.assignment import _clamp_value, matching_cost_matrix, solve_assignment_sub
 
 IMAX = 2147483647
 # The kernel's own limits: one slot per thread plus the root column; order
@@ -44,11 +44,6 @@ IMAX = 2147483647
 # tracker's routing (`tracking/tracker.py::_use_cascade_kernel`) is
 # narrower: it keeps the TPU kernel's gates.
 MAX_K = 1023
-
-
-def _clamp_value(threshold: float) -> float:
-    """f32 value of threshold + 1e-5 (min_cost_matching's clamp)."""
-    return float(np.float32(threshold + 1e-5))
 
 
 def _match_stage(cost, rows, det_free, track_col, threshold, row_order, det_key, stage_base):
@@ -68,7 +63,7 @@ def _match_stage(cost, rows, det_free, track_col, threshold, row_order, det_key,
     imax = torch.full_like(row_order, IMAX)
     row_perm = torch.argsort(torch.where(rows, row_order, imax), stable=True)
     col_perm = torch.argsort(torch.where(det_free, det_key, imax), stable=True)
-    c = matching_cost_matrix(cost, rows, det_free, _clamp_value(threshold))
+    c = matching_cost_matrix(cost, rows, det_free, threshold)
     c2 = c[row_perm][:, col_perm]
     r2c = solve_assignment_sub(c2, nr, nc)  # permuted row -> permuted col
 

@@ -71,8 +71,10 @@ def _bilinear_coords(boxes_xyxy: torch.Tensor, h: int, w: int, out_size: Tuple[i
 
 
 def gather_crops_batch_plain(frames_planar: torch.Tensor, frame_idx: torch.Tensor,
-                             boxes_xyxy: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K1: normalised [D, 50, 50, 3] f32 crops.
+                             boxes_xyxy: torch.Tensor, valid: torch.Tensor,
+                             out_size: Tuple[int, int] = (CROP_SIZE, CROP_SIZE)) -> torch.Tensor:
+    """Plain PyTorch version of K1: normalised [D, 50, 50, 3] f32 crops
+    (any [D, oh, ow, 3] with `out_size`, which K1 does not take).
 
     frames_planar [B, 3, H, W] uint8 RGB; frame_idx [D] source frame per
     crop; boxes_xyxy [D, 4] f32 crop-source pixels; valid [D] bool.
@@ -82,13 +84,14 @@ def gather_crops_batch_plain(frames_planar: torch.Tensor, frame_idx: torch.Tenso
     """
     b, _, h, w = frames_planar.shape
     d = frame_idx.shape[0]
-    y0c, y1c, fy, x0c, x1c, fx = _bilinear_coords(boxes_xyxy, h, w, (CROP_SIZE, CROP_SIZE))
+    oh, ow = out_size
+    y0c, y1c, fy, x0c, x1c, fx = _bilinear_coords(boxes_xyxy, h, w, (oh, ow))
     f = torch.clamp(frame_idx.long(), 0, b - 1)[:, None]
     wx1 = fx[:, None, None, :]            # [D, 1, 1, ow]
     wx0 = 1.0 - wx1
     same = (x0c == x1c)[:, None, None, :]
-    i0 = x0c.long()[:, None, None, :].expand(d, CROP_SIZE, 3, CROP_SIZE)
-    i1 = x1c.long()[:, None, None, :].expand(d, CROP_SIZE, 3, CROP_SIZE)
+    i0 = x0c.long()[:, None, None, :].expand(d, oh, 3, ow)
+    i1 = x1c.long()[:, None, None, :].expand(d, oh, 3, ow)
 
     def col_mix(y_idx):
         rows = frames_planar[f, :, y_idx.long()]  # [D, oh, 3, W] u8
@@ -185,9 +188,17 @@ def planar_copy(frames: torch.Tensor) -> torch.Tensor:
     return frames.permute(0, 3, 1, 2).contiguous()
 
 
-def gather_crops(frame: torch.Tensor, boxes_xyxy: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Normalised [D, 50, 50, 3] f32 crops of one interleaved [H, W, 3]
-    frame (the JAX package's `gather_crops`): K1 on the frame's planar copy
-    for CUDA tensors, its plain version for CPU tensors."""
+def gather_crops(frame: torch.Tensor, boxes_xyxy: torch.Tensor, valid: torch.Tensor,
+                 out_size: Tuple[int, int] = (CROP_SIZE, CROP_SIZE), dtype=None) -> torch.Tensor:
+    """Normalised [D, oh, ow, 3] f32 crops of one interleaved [H, W, 3]
+    frame (the JAX package's `gather_crops`): at the ReID size K1 on the
+    frame's planar copy for CUDA tensors, its plain version for CPU
+    tensors; at any other `out_size` the plain version (K1's size is
+    fixed). `dtype` is JAX's column-weight dtype, which only its TPU
+    lowering uses: on any other backend JAX computes in f32, as the port
+    always does."""
     fidx = torch.zeros(boxes_xyxy.shape[0], dtype=torch.int32, device=frame.device)
-    return gather_crops_batch(planar_copy(frame[None]), fidx, boxes_xyxy, valid)
+    planar = planar_copy(frame[None])
+    if tuple(out_size) == (CROP_SIZE, CROP_SIZE):
+        return gather_crops_batch(planar, fidx, boxes_xyxy, valid)
+    return gather_crops_batch_plain(planar, fidx, boxes_xyxy, valid, out_size=tuple(out_size))

@@ -38,7 +38,7 @@ from typing import Tuple
 import torch
 
 from vehicle_counting_tpu_torch.models.yolo import YoloConfig
-from vehicle_counting_tpu_torch.parallel.mesh import DeviceMesh, tree_to
+from vehicle_counting_tpu_torch.parallel.mesh import DeviceMesh, weight_replicas
 from vehicle_counting_tpu_torch.pipeline.step import detect_embed_core, tracker_scan
 from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams
 from vehicle_counting_tpu_torch.utils.device import on_device
@@ -95,13 +95,7 @@ def make_framedp_step(
         conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det, dtype=dtype,
         frames_format=frames_format,
     )
-    replicas = {}  # device -> (the caller's weight trees, their copies on the device)
-
-    def weights_on(device, trees):
-        hit = replicas.get(device)
-        if hit is None or any(a is not b for a, b in zip(hit[0], trees)):
-            hit = replicas[device] = (trees, tuple(tree_to(t, device) for t in trees))
-        return hit[1]
+    weights_on = weight_replicas()
 
     def step(yolo_params, reid_params, reid_stats, class_lut, states, frames, frame_valid):
         trees = (yolo_params, reid_params, reid_stats, class_lut)

@@ -81,6 +81,23 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+def weight_replicas():
+    """`weights_on(device, trees)`: the tuple of weight trees `trees` copied
+    to `device`, copied at the first call with these tree objects and
+    reused while the caller passes the same objects (a weight changed in
+    place is not copied again). One copy per device, however often a mesh
+    repeats it. A step that places shards on devices keeps one."""
+    replicas = {}  # device -> (the caller's weight trees, their copies on the device)
+
+    def weights_on(device, trees):
+        hit = replicas.get(device)
+        if hit is None or any(a is not b for a, b in zip(hit[0], trees)):
+            hit = replicas[device] = (trees, tuple(tree_to(t, device) for t in trees))
+        return hit[1]
+
+    return weights_on
+
+
 # ---------------------------------------------------------------------------
 # multi-host scale-out
 # ---------------------------------------------------------------------------
@@ -127,8 +144,8 @@ def make_global_mesh(axis_names: Sequence[str] = ("cam",)) -> DeviceMesh:
     return DeviceMesh(tuple(torch.device(n) for n in names), tuple(axis_names))
 
 
-def host_local_to_global(mesh: DeviceMesh, spec, local: torch.Tensor) -> torch.Tensor:
-    """Every rank's `local` joined along the sharded axis (the first entry
+def host_local_to_global(mesh: DeviceMesh, spec, local_array: torch.Tensor) -> torch.Tensor:
+    """Every rank's `local_array` joined along the sharded axis (the first entry
     of `spec` that is not None, as in a PartitionSpec), in rank order, on
     this rank's device: an `all_gather`, so every rank calls it with
     equal local shapes."""
@@ -138,7 +155,7 @@ def host_local_to_global(mesh: DeviceMesh, spec, local: torch.Tensor) -> torch.T
     if mesh.size != world:
         raise ValueError(f"the mesh has {mesh.size} entries, the process group {world} ranks")
     axis = next((i for i, name in enumerate(spec) if name is not None), 0)
-    x = local.to(local_device()).contiguous()
+    x = local_array.to(local_device()).contiguous()
     wire = x.view(torch.uint8) if x.dtype == torch.bool else x
     parts = [torch.empty_like(wire) for _ in range(world)]
     dist.all_gather(parts, wire)
@@ -146,10 +163,10 @@ def host_local_to_global(mesh: DeviceMesh, spec, local: torch.Tensor) -> torch.T
     return out.view(torch.bool) if x.dtype == torch.bool else out
 
 
-def global_to_host_local(global_tensor: torch.Tensor, axis: int = 0) -> torch.Tensor:
+def global_to_host_local(global_array: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """This rank's rows of a tensor joined by `host_local_to_global`."""
     import torch.distributed as dist
 
     world, rank = dist.get_world_size(), dist.get_rank()
-    n = global_tensor.shape[axis] // world
-    return global_tensor.narrow(axis, rank * n, n)
+    n = global_array.shape[axis] // world
+    return global_array.narrow(axis, rank * n, n)

@@ -399,7 +399,7 @@ class CountingPipeline:
         it = reader.batches()
         detect = functools.partial(
             detect_only_step, ycfg=self.ycfg, image_size=net_hw, src_hw=src_hw, conf_thres=self.conf_thres,
-            iou_thres=self.iou_thres, max_det=self.max_det, dtype=self.dtype)
+            iou_thres=self.iou_thres, max_det=self.max_det, dtype=self.dtype, content_only=content_only)
         mesh = self._frame_parallel_mesh()
         if mesh is not None:
             from vehicle_counting_tpu_torch.parallel.mesh import tree_to

@@ -1,11 +1,16 @@
-"""Concurrent multi-camera counting on one card.
+"""Concurrent multi-camera counting over a device mesh.
 
 Port of `vehicle_counting_tpu/pipeline/multicam.py`. The reference counts
 a directory of videos one by one (modules/__init__.py:29); here all
-cameras of a group step together: one device step per round carries B
-frames of every camera (`parallel/cameras.py::multicam_batch_step`: the
-front per camera, one frame scan for all cameras' classes). The host keeps
-one reader and one counter per camera; a camera that runs out of frames
+cameras of a group step together: one step per round carries B frames of
+every camera, the cameras sharded over the mesh's 'cam' axis
+(`parallel/cameras.py::make_multicam_step`: on each card the front per
+camera, one frame scan for its cameras' classes). Without a mesh it is
+every visible card for a `device` of "cuda", that card alone for
+"cuda:k", and the CPU for "cpu". Each group's camera count is padded to a
+multiple of the mesh size with cameras whose frames are all invalid, and
+each shard's frames are uploaded straight to its card. The host keeps one
+reader and one counter per camera; a camera that runs out of frames
 rides along with its frames marked invalid until the group's longest
 video ends.
 
@@ -14,8 +19,8 @@ hyper-parameters (one step, one captured frame graph). `run` splits the
 videos into groups by (geometry, the camera's `tracking_config`), in path
 order, so every camera keeps its own cam_configs.yaml parameters, and runs
 one loop per group with the serial loop's overlap: the worker thread
-decodes, letterboxes and uploads the next round while the card runs this
-one, and the readback lags one round.
+decodes, letterboxes and uploads the next round while the cards run this
+one, and the readback (every shard's outputs) lags one round.
 
 Artifacts are the serial pipeline's: {output}/{cam}.csv and, with
 visualize, {output}/{cam}.mp4. Faults are isolated per video at open
@@ -38,9 +43,10 @@ import torch
 from vehicle_counting_tpu_torch.counting import VehicleCounter, count_directions
 from vehicle_counting_tpu_torch.counting.visualize import visualize_merged
 from vehicle_counting_tpu_torch.data.video import VideoReader, VideoWriter
-from vehicle_counting_tpu_torch.pipeline import CountingPipeline, prefetch
+from vehicle_counting_tpu_torch.pipeline import CountingPipeline, prefetch, upload_shards
 from vehicle_counting_tpu_torch.utils.device import on_device
 from vehicle_counting_tpu_torch.utils.profiling import StageTimer
+from vehicle_counting_tpu_torch.utils.transfer import parallel_device_put
 
 
 def _failed(camera: str, video: str, error: Exception) -> Dict:
@@ -49,11 +55,27 @@ def _failed(camera: str, video: str, error: Exception) -> Dict:
 
 
 class MultiCamCountingPipeline:
-    """Camera-concurrent variant of CountingPipeline (same artifacts)."""
+    """Camera-concurrent variant of CountingPipeline (same artifacts), its
+    cameras sharded over `mesh` (`parallel/mesh.py::DeviceMesh`; None:
+    see the module docstring)."""
 
-    def __init__(self, args, config=None, cam_config=None):
+    def __init__(self, args, config=None, cam_config=None, mesh=None):
         # all of CountingPipeline's construction: device, models, class map, shapes
         self.base = CountingPipeline(args, config, cam_config)
+        self.mesh = mesh
+
+    def _camera_mesh(self):
+        """The mesh the cameras are sharded over: the one given, else every
+        visible card for a device of "cuda" (JAX's `make_mesh(None,
+        ("cam",))`), the one card of "cuda:k", or the CPU."""
+        from vehicle_counting_tpu_torch.parallel.mesh import DeviceMesh, make_mesh
+
+        if self.mesh is not None:
+            return self.mesh
+        dev = self.base.device
+        if dev.type == "cuda" and dev.index is None:
+            return make_mesh(None, ("cam",), "cuda")
+        return DeviceMesh((dev,), ("cam",))
 
     def run(self, visualize: bool = False) -> List[Dict]:
         """Group the videos by (geometry, tracking params) and run each
@@ -86,21 +108,26 @@ class MultiCamCountingPipeline:
         return results
 
     def _run_group(self, readers: List[VideoReader], hp, src_hw: Tuple[int, int], visualize: bool) -> List[Dict]:
-        with on_device(self.base.device):  # the kernel wrappers launch on the current device
-            return self._run_group_on_device(readers, hp, src_hw, visualize)
+        mesh = self._camera_mesh()
+        with on_device(mesh.devices[0]):  # the kernel wrappers launch on the current device
+            return self._run_group_on_mesh(readers, hp, src_hw, visualize, mesh)
 
-    def _run_group_on_device(self, readers, hp, src_hw, visualize) -> List[Dict]:
+    def _run_group_on_mesh(self, readers, hp, src_hw, visualize, mesh) -> List[Dict]:
         from vehicle_counting_tpu_torch.ops.letterbox import content_rows, content_upload_exact, host_letterbox_yuv420
-        from vehicle_counting_tpu_torch.parallel.cameras import camera_params, make_multicam_step, regroup_states
+        from vehicle_counting_tpu_torch.parallel.cameras import camera_params, join_shards, make_multicam_step
+        from vehicle_counting_tpu_torch.parallel.cameras import regroup_states
         from vehicle_counting_tpu_torch.pipeline import step as step_mod
         from vehicle_counting_tpu_torch.tracking.deepsort import init_states
 
         base = self.base
-        dev = base.device
         n_cam, b = len(readers), base.batch_size
         cams = [base.get_cam_name(r.video_path) for r in readers]
-        hp_all = camera_params(hp, n_cam)
-        states = regroup_states(init_states(hp_all, dev), (n_cam, hp.num_classes))
+        # padded to a multiple of the mesh size: the padded cameras' frames stay invalid
+        total = n_cam + (-n_cam) % mesh.size
+        n_local = total // mesh.size
+        hp_local = camera_params(hp, n_local)
+        states = [regroup_states(init_states(hp_local, d), (n_local, hp.num_classes)) for d in mesh.devices]
+        states = states[0] if mesh.size == 1 else tuple(states)
 
         # a camera whose zone file fails still rides through the loop and fails alone at output
         counters, counter_errors = [], []
@@ -120,13 +147,13 @@ class MultiCamCountingPipeline:
         content_only = thin and content_upload_exact(src_hw, net_hw)
         if thin:
             rows_up = content_rows(src_hw, net_hw)[1] if content_only else net_hw[0]
-            frame_shape = (n_cam, b, rows_up * 3 // 2, net_hw[1])
+            frame_shape = (total, b, rows_up * 3 // 2, net_hw[1])
             frames_format = "letterboxed_yuv420"
         else:
-            frame_shape = (n_cam, b) + tuple(src_hw) + (3,)
+            frame_shape = (total, b) + tuple(src_hw) + (3,)
             frames_format = "raw_rgb"
         step = make_multicam_step(
-            ycfg=base.ycfg, hp=hp, image_size=net_hw, src_hw=src_hw, conf_thres=base.conf_thres,
+            mesh, ycfg=base.ycfg, hp=hp, image_size=net_hw, src_hw=src_hw, conf_thres=base.conf_thres,
             iou_thres=base.iou_thres, max_det=base.max_det, dtype=base.dtype, frames_format=frames_format,
         )
 
@@ -140,8 +167,8 @@ class MultiCamCountingPipeline:
             """Every camera's next batch, letterboxed: (frames, ids, valid)
             with an exhausted camera's frames left invalid; None at the end."""
             frames = np.zeros(frame_shape, np.uint8)
-            ids = np.zeros((n_cam, b), np.int64)
-            valid = np.zeros((n_cam, b), bool)
+            ids = np.zeros((total, b), np.int64)
+            valid = np.zeros((total, b), bool)
             for i, it in enumerate(iters):
                 if done[i]:
                     continue
@@ -160,15 +187,20 @@ class MultiCamCountingPipeline:
         def prep(batch):
             frames, ids, valid = batch
             with timer.stage("upload"):
-                return base._upload(frames), base._upload(valid), ids, valid
+                if mesh.size == 1:
+                    return (parallel_device_put(frames, device=mesh.devices[0]),
+                            parallel_device_put(valid, device=mesh.devices[0]), ids, valid)
+                # each shard's cameras straight to its card
+                return upload_shards(frames, mesh), upload_shards(valid, mesh), ids, valid
 
         def drain(pending):
             touts, ids, valid = pending
             with timer.stage("readback"):
-                mask = touts.mask.cpu().numpy()  # [N_cam, B, C, K]
-                tids = touts.ids.cpu().numpy()
-                boxes = touts.boxes.cpu().numpy()
-            n_frames[:] += valid.sum(1)
+                touts = join_shards(touts, "cpu")
+                mask = touts.mask.numpy()  # [N_cam (padded), B, C, K]
+                tids = touts.ids.numpy()
+                boxes = touts.boxes.numpy()
+            n_frames[:] += valid[:n_cam].sum(1)
             for i in range(n_cam):
                 bb, c, k = np.nonzero(mask[i])
                 if bb.size:
@@ -177,9 +209,11 @@ class MultiCamCountingPipeline:
                     rows[i]["labels"].extend(c.tolist())
                     rows[i]["boxes"].extend(boxes[i, bb, c, k])
 
-        if step_mod.use_frame_graph(dev):
-            # capture the group's frame step (N_cam x C classes) before the upload worker starts
-            step_mod.frame_runner(hp_all, src_hw, dev)
+        for i, d in enumerate(mesh.devices):
+            if step_mod.use_frame_graph(d):
+                # capture each shard's frame step (n_local x C classes) before the upload worker starts
+                with on_device(d):
+                    step_mod.frame_runner(hp_local, src_hw, d, i)
         t_start = time.perf_counter()
         pending = None
         try:
@@ -194,8 +228,9 @@ class MultiCamCountingPipeline:
                 if pending is not None:
                     drain(pending)
         finally:
-            # this group's captured step, its static state and its pool
-            step_mod.free_frame_runner(hp_all, src_hw, dev)
+            # this group's captured steps, their static states and pools
+            for i, d in enumerate(mesh.devices):
+                step_mod.free_frame_runner(hp_local, src_hw, d, i)
         elapsed = time.perf_counter() - t_start
         fps = float(n_frames.sum()) / elapsed if elapsed > 0 else 0.0
         if base.debug:

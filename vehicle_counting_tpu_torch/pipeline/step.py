@@ -31,6 +31,7 @@ from vehicle_counting_tpu_torch.models.detector import fused_detect_tail
 from vehicle_counting_tpu_torch.models.yolo import YoloConfig, yolov5_forward_nchw
 from vehicle_counting_tpu_torch.ops import true_div
 from vehicle_counting_tpu_torch.ops.letterbox import (
+    content_rows,
     letterbox,
     letterbox_params,
     restore_boxes,
@@ -55,35 +56,38 @@ from vehicle_counting_tpu_torch.tracking.tracker import TrackerOutputs
 # no fallback to the eager loop.
 USE_FRAME_GRAPH = None
 
-_RUNNERS = {}  # (hp, out_hw, device, association route) -> FrameRunner
+_RUNNERS = {}  # (hp, out_hw, device, slot, association route) -> FrameRunner
 
 
-def _runner_key(hp: DeepSortParams, src_hw: Tuple[int, int], device):
+def _runner_key(hp: DeepSortParams, src_hw: Tuple[int, int], device, slot: int = 0):
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return hp, tuple(src_hw), device, tracker_mod._use_cascade_kernel(hp.tracker)
+    return hp, tuple(src_hw), device, int(slot), tracker_mod._use_cascade_kernel(hp.tracker)
 
 
-def frame_runner(hp: DeepSortParams, src_hw: Tuple[int, int], device) -> FrameRunner:
+def frame_runner(hp: DeepSortParams, src_hw: Tuple[int, int], device, slot: int = 0) -> FrameRunner:
     """The captured frame step for this configuration, built at first use.
     Each holds a static tracker state and its graph's memory pool until
-    `free_frame_runner` or `free_frame_runners` drops it."""
-    key = _runner_key(hp, src_hw, device)
+    `free_frame_runner` or `free_frame_runners` drops it. `slot` tells
+    apart runners of one configuration on one device: the camera-sharded
+    step gives each shard its own, since a runner hands out its own
+    buffers as the state, and two shards on one card must not share them."""
+    key = _runner_key(hp, src_hw, device, slot)
     runner = _RUNNERS.get(key)
     if runner is None:
         runner = _RUNNERS[key] = FrameRunner(hp, src_hw, key[2])
     return runner
 
 
-def free_frame_runner(hp: DeepSortParams, src_hw: Tuple[int, int], device) -> None:
+def free_frame_runner(hp: DeepSortParams, src_hw: Tuple[int, int], device, slot: int = 0) -> None:
     """Drop this configuration's captured frame step, on both association
     routes, with its static state and pool (a directory of cameras with
     different tracking configs would otherwise keep one per camera). A
     state it handed out stays readable."""
-    key = _runner_key(hp, src_hw, device)
+    key = _runner_key(hp, src_hw, device, slot)
     for route in (False, True):
-        _RUNNERS.pop(key[:3] + (route,), None)
+        _RUNNERS.pop(key[:4] + (route,), None)
 
 
 def free_frame_runners() -> None:
@@ -119,33 +123,31 @@ def _detect(yolo_params, imgs, ycfg: YoloConfig, src_hw, image_size, conf_thres,
 
 def detect_only_step(yolo_params, yuv, *, ycfg: YoloConfig, image_size: Tuple[int, int],
                      src_hw: Tuple[int, int], conf_thres: float = 0.25, iou_thres: float = 0.45,
-                     max_det: int = 300, dtype=torch.bfloat16):
+                     max_det: int = 300, dtype=torch.bfloat16, content_only: bool = False):
     """The detect-only device step on the thin-upload I420 path:
     `pipeline_batch_step`'s letterboxed_yuv420 pixel path and detector
     without ReID or tracking (the reference's ImageDetect.run,
-    modules/detect.py:30-60). yuv [B, rows*3/2, W] uint8, content rows or
-    the full letterbox. Returns boxes [B, max_det, 4] xyxy in source pixels
-    (zero where invalid), scores, classes, valid."""
+    modules/detect.py:30-60). yuv [B, rows*3/2, W] uint8: the content rows
+    with `content_only`, else the full letterbox; an upload whose row count
+    is not that one's raises. Returns boxes [B, max_det, 4] xyxy in source
+    pixels (zero where invalid), scores, classes, valid."""
+    rows = (content_rows(src_hw, image_size)[1] if content_only else image_size[0]) * 3 // 2
+    if yuv.shape[1] != rows:
+        raise ValueError(f"content_only={content_only} takes an I420 upload of {rows} rows, got {yuv.shape[1]}")
     imgs = _net_input(_i420_pixels(yuv, src_hw, image_size), dtype)
     out = _detect(yolo_params, imgs, ycfg, src_hw, image_size, conf_thres, iou_thres, max_det)
     out["boxes"] = out["boxes"] * out["valid"][..., None]
     return out
 
 
-def detect_embed_core(yolo_params, reid_params, reid_stats, frames, frame_valid, class_lut, *,
-                      ycfg: YoloConfig, hp: DeepSortParams, image_size: Tuple[int, int],
-                      src_hw: Tuple[int, int], conf_thres: float = 0.25, iou_thres: float = 0.45,
-                      max_det: int = 300, dtype=torch.bfloat16,
-                      frames_format: str = "letterboxed_yuv420"):
-    """The frame-independent front: pixels -> detections + ReID features.
-
-    frames as `frames_format` says (module docstring); frame_valid [B]
-    bool; class_lut [nc] int detector class -> tracked class (-1 drops).
-    Returns (det, feats [B, max_det, F]) with det boxes in source pixels.
-    The crop source is the planar RGB of the I420 upload, or the uploaded
-    frames themselves: the letterbox (through the gain/pad transform) or
-    the raw frames at source resolution.
-    """
+def detect_front(yolo_params, frames, frame_valid, class_lut, *, ycfg: YoloConfig, image_size: Tuple[int, int],
+                 src_hw: Tuple[int, int], conf_thres: float = 0.25, iou_thres: float = 0.45, max_det: int = 300,
+                 dtype=torch.bfloat16, frames_format: str = "raw_rgb"):
+    """The front's first half, no host read: pixels -> detections with
+    their tracked classes. Returns (det, crop), `crop` the embed's source
+    (`embed_front`): the planar RGB of the I420 upload, or the uploaded
+    frames themselves (the letterbox, through the gain/pad transform, or
+    the raw frames at source resolution)."""
     planar, crop_gain, crop_pad = True, 1.0, (0.0, 0.0)
     if frames_format == "raw_rgb":
         imgs = letterbox(frames, image_size).to(dtype).permute(0, 3, 1, 2).contiguous()
@@ -164,16 +166,34 @@ def detect_embed_core(yolo_params, reid_params, reid_stats, frames, frame_valid,
     det = _detect(yolo_params, imgs, ycfg, src_hw, image_size, conf_thres, iou_thres, max_det)
 
     mapped = class_lut[torch.clamp(det["classes"], 0, class_lut.shape[0] - 1).long()]
-    det_valid = det["valid"] & (mapped >= 0) & frame_valid[:, None]
-    mapped = torch.where(det_valid, mapped, -1).to(torch.int32)
+    det["valid"] = det["valid"] & (mapped >= 0) & frame_valid[:, None]
+    det["classes"] = torch.where(det["valid"], mapped, -1).to(torch.int32)
+    return det, dict(source=crop_source, crop_gain=crop_gain, crop_pad=crop_pad, planar=planar)
 
-    feats = embed_detections_batch(
-        crop_source, det["boxes"], det_valid, reid_params, reid_stats, hp,
-        crop_gain=crop_gain, crop_pad=crop_pad, dtype=dtype, planar=planar,
-    )
-    det["classes"] = mapped
-    det["valid"] = det_valid
-    return det, feats
+
+def embed_front(reid_params, reid_stats, det, crop, *, hp: DeepSortParams, dtype=torch.bfloat16):
+    """The front's second half: the ReID features [B, max_det, F] of
+    `detect_front`'s valid detections (one host read of their count)."""
+    return embed_detections_batch(crop["source"], det["boxes"], det["valid"], reid_params, reid_stats, hp,
+                                  crop_gain=crop["crop_gain"], crop_pad=crop["crop_pad"], dtype=dtype,
+                                  planar=crop["planar"])
+
+
+def detect_embed_core(yolo_params, reid_params, reid_stats, frames, frame_valid, class_lut, *,
+                      ycfg: YoloConfig, hp: DeepSortParams, image_size: Tuple[int, int],
+                      src_hw: Tuple[int, int], conf_thres: float = 0.25, iou_thres: float = 0.45,
+                      max_det: int = 300, dtype=torch.bfloat16, frames_format: str = "raw_rgb"):
+    """The frame-independent front: pixels -> detections + ReID features.
+
+    frames as `frames_format` says (module docstring); frame_valid [B]
+    bool; class_lut [nc] int detector class -> tracked class (-1 drops).
+    Returns (det, feats [B, max_det, F]) with det boxes in source pixels:
+    `detect_front`, then `embed_front`.
+    """
+    det, crop = detect_front(yolo_params, frames, frame_valid, class_lut, ycfg=ycfg, image_size=image_size,
+                             src_hw=src_hw, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
+                             dtype=dtype, frames_format=frames_format)
+    return det, embed_front(reid_params, reid_stats, det, crop, hp=hp, dtype=dtype)
 
 
 def tracker_scan(states, det, feats, *, hp: DeepSortParams, src_hw: Tuple[int, int]):
@@ -187,14 +207,15 @@ def tracker_scan(states, det, feats, *, hp: DeepSortParams, src_hw: Tuple[int, i
     return scan_frame_inputs(states, inp, hp=hp, src_hw=src_hw)
 
 
-def scan_frame_inputs(states, inp: FrameInputs, *, hp: DeepSortParams, src_hw: Tuple[int, int]):
+def scan_frame_inputs(states, inp: FrameInputs, *, hp: DeepSortParams, src_hw: Tuple[int, int], slot: int = 0):
     """`tracker_scan` over inputs already slotted by class (`frame_inputs`,
     leaves [B, C, K, ...]), with the same return and the same ownership
     rule for the state. `hp.num_classes` must be the inputs' class count:
-    the multi-camera step hands in N_cam x C classes."""
+    the multi-camera step hands in N_cam x C classes. On the card the scan
+    replays the frame runner of `slot` (see `frame_runner`)."""
     device = inp.valid.device
     if use_frame_graph(device):
-        return frame_runner(hp, src_hw, device).run(states, inp)
+        return frame_runner(hp, src_hw, device, slot).run(states, inp)
     outs = []
     for i in range(inp.valid.shape[0]):
         states, out = frame_update(states, FrameInputs(*(x[i] for x in inp)), hp, src_hw)
@@ -206,7 +227,7 @@ def pipeline_batch_step(yolo_params, reid_params, reid_stats, states, frames, fr
                         class_lut, *, ycfg: YoloConfig, hp: DeepSortParams,
                         image_size: Tuple[int, int], src_hw: Tuple[int, int],
                         conf_thres: float = 0.25, iou_thres: float = 0.45, max_det: int = 300,
-                        dtype=torch.bfloat16, frames_format: str = "letterboxed_yuv420"):
+                        dtype=torch.bfloat16, frames_format: str = "raw_rgb"):
     """Returns (new_states, det dict [B, max_det], TrackerOutputs [B, C, K]).
     The tracker gallery is updated in place."""
     det, feats = detect_embed_core(

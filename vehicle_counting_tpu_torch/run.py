@@ -11,8 +11,9 @@ checkpoint is `checkpoint:` in cam_configs.yaml. Without --weight the
 detector loads ./.cache/<model_name>.pt, else tries one fetch of the COCO
 checkpoint into it, else is random-init from seed 0 (utils/download.py);
 without a checkpoint the ReID weights are random-init from seed 1.
---multicam counts every video concurrently on the one card
-(pipeline/multicam.py) instead of the reference's strictly serial loop.
+--multicam counts every video concurrently, the cameras sharded over every
+card (`--device cuda`; `cuda:k` keeps them on that card) instead of the
+reference's strictly serial loop (pipeline/multicam.py).
 --frame_parallel splits each batch's frames over every card for detection
 and embedding (parallel/frames.py); on one card it changes nothing.
 """
@@ -46,10 +47,11 @@ parser.add_argument("--check_numerics", action="store_true",
 parser.add_argument("--detect_only", action="store_true",
                     help="detection-only pass: per-frame detections CSV, no tracking")
 parser.add_argument("--multicam", action="store_true",
-                    help="process all videos CONCURRENTLY on the one card (same CSV/MP4 artifacts): each round "
-                         "steps B frames of every camera, one tracker frame step for all cameras' classes. "
-                         "Videos are grouped by (frame geometry, per-camera tracking_config), so every camera "
-                         "keeps its own cam_configs.yaml DeepSORT params. Incompatible with --detect_only.")
+                    help="process all videos CONCURRENTLY (same CSV/MP4 artifacts), the cameras sharded over every "
+                         "card of --device cuda (that card alone for cuda:k): each round steps B frames of every "
+                         "camera, on each card one tracker frame step for its cameras' classes. Videos are grouped "
+                         "by (frame geometry, per-camera tracking_config), so every camera keeps its own "
+                         "cam_configs.yaml DeepSORT params. Incompatible with --detect_only.")
 parser.add_argument("--frame_parallel", action="store_true",
                     help="split each batch's frames over every card for detection and ReID embedding "
                          "(parallel/frames.py); the tracker runs once, on the first card, on the joined results. "

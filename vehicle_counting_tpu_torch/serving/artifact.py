@@ -376,7 +376,7 @@ def export_detect_step(
     return ExportedStep(
         entry="vehicle_counting_tpu_torch.pipeline.step:detect_only_step",
         static=_static_json(image_size=image_size, src_hw=src_hw, conf_thres=conf_thres, iou_thres=iou_thres,
-                            max_det=max_det, dtype=dtype),
+                            max_det=max_det, dtype=dtype, content_only=content),
         in_specs=[_specs(yolo_params), [[list(frames_shape), "uint8"]]],
         platform=_platform(yolo_params, platforms), uses_hp=False,
     )
@@ -393,6 +393,7 @@ def export_multicam_step(
     batch: int,
     image_size: Tuple[int, int],
     src_hw: Tuple[int, int],
+    devices: Optional[Sequence[Any]] = None,
     conf_thres: float = 0.25,
     iou_thres: float = 0.45,
     max_det: int = 300,
@@ -401,14 +402,23 @@ def export_multicam_step(
     content_only: bool = True,
     platforms: Optional[Sequence[str]] = None,
 ) -> ExportedStep:
-    """Export the multi-camera step of one card
-    (`parallel/cameras.py::make_multicam_step`; class_lut comes fourth).
-    states leaves [n_cameras, C, ...], frames [n_cameras, batch, ...],
-    frame_valid [n_cameras, batch]. One device: the port's multi-camera
-    step takes no mesh."""
+    """Export the camera-sharded step (`parallel/cameras.py::make_multicam_step`;
+    class_lut comes fourth): states leaves [n_cameras, C, ...], frames
+    [n_cameras, batch, ...] and frame_valid [n_cameras, batch] split over
+    the mesh of `devices` (default: every card of the weights' platform,
+    or one CPU entry), weights replicated; n_cameras must be a multiple of
+    the device count. The artifact records the device count and loads on
+    a mesh of that many devices of its platform (a host with fewer cards
+    raises). Over several devices the loaded step takes and returns
+    per-shard tuples, as `make_multicam_step` does; the input specs are the
+    global shapes."""
     from vehicle_counting_tpu_torch.parallel.cameras import camera_params
+    from vehicle_counting_tpu_torch.parallel.mesh import make_mesh
 
     platform = _platform(yolo_params, platforms)
+    n = len(devices) if devices is not None else make_mesh(None, ("cam",), platform).size
+    if n_cameras % n:
+        raise ValueError(f"n_cameras={n_cameras} not divisible by {n} devices")
     frames_shape = (n_cameras,) + serving_frames_shape(frames_format, batch, src_hw, image_size, content_only)
     return ExportedStep(
         entry="vehicle_counting_tpu_torch.parallel.cameras:make_multicam_step",
@@ -416,7 +426,8 @@ def export_multicam_step(
                             max_det=max_det, dtype=dtype, frames_format=frames_format),
         in_specs=[_specs(yolo_params), _specs(reid_params), _specs(reid_stats), [[[ycfg.num_classes], "int32"]],
                   _state_specs(hp, (n_cameras,)), [[list(frames_shape), "uint8"]], [[[n_cameras, batch], "bool"]]],
-        platform=platform, builder=True, kernel_modes=_kernel_modes(camera_params(hp, n_cameras), platform),
+        platform=platform, nr_devices=n, builder=True, mesh_axis="cam",
+        kernel_modes=_kernel_modes(camera_params(hp, n_cameras // n), platform),
     )
 
 
@@ -683,8 +694,15 @@ class ServingArtifact:
         if len(args) != len(exp.in_specs):
             raise TypeError(f"{name} takes {len(exp.in_specs)} inputs, got {len(args)}")
         for i, (arg, want) in enumerate(zip(args, exp.in_specs)):
-            leaves = _leaves(arg)
-            have = [[list(t.shape), _dtype_name(t.dtype)] for t in leaves]
+            if exp.mesh_axis is not None and isinstance(arg, (list, tuple)) and not hasattr(arg, "_fields"):
+                # the mesh's shards of one input: checked as the global value they make up
+                shards = [_leaves(a) for a in arg]
+                leaves = [leaf for s in shards for leaf in s]
+                have = [[[sum(s[j].shape[0] for s in shards)] + list(t.shape[1:]), _dtype_name(t.dtype)]
+                        for j, t in enumerate(shards[0])]
+            else:
+                leaves = _leaves(arg)
+                have = [[list(t.shape), _dtype_name(t.dtype)] for t in leaves]
             if have != want:
                 raise ValueError(f"{name} input {i}: leaves {have[:3]}... do not match the export's {want[:3]}...")
             bad = {str(t.device) for t in leaves if t.device.type != exp.platform}

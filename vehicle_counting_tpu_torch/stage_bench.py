@@ -110,7 +110,7 @@ def _run(args, dev, src_hw, size, variant):
     import torch
 
     from vehicle_counting_tpu_torch.models.detector import fused_detect_tail
-    from vehicle_counting_tpu_torch.models.reid import cast_conv_weights, init_reid, reid_forward
+    from vehicle_counting_tpu_torch.models.reid import cast_conv_weights, init_reid, reid_embed
     from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params, init_yolov5, yolov5_forward_nchw
     from vehicle_counting_tpu_torch.ops import true_div
     from vehicle_counting_tpu_torch.ops.crops import gather_crops_batch, gather_crops_batch_plain
@@ -220,7 +220,7 @@ def _run(args, dev, src_hw, size, variant):
 
             if "embed_cnn" in stages:
                 crops_fixed = gather_crops_batch(crop_source, fidx, bsel, vsel)
-                timed("embed_cnn", lambda: reid_forward(reid_params, reid_stats, crops_fixed, dtype=reid_dt))
+                timed("embed_cnn", lambda: reid_embed(reid_params, reid_stats, crops_fixed, dtype=reid_dt))
                 del crops_fixed
 
         if stages & {"tracker_churn", "tracker_steady"}:

@@ -14,6 +14,7 @@ entries BIG. Only real rows are inserted, so padding never perturbs ties.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 BIG = 8.0  # >> any clamped association cost (<= ~1)
@@ -111,10 +112,16 @@ def solve_assignment(cost: torch.Tensor) -> torch.Tensor:
     return solve_assignment_sub_fast(sq, n, m)[:n]
 
 
+def _clamp_value(max_distance: float) -> float:
+    """f32 value of max_distance + 1e-5 (min_cost_matching's clamp), as the
+    JAX package's f32 arithmetic computes it."""
+    return float(np.float32(float(max_distance) + 1e-5))
+
+
 def matching_cost_matrix(cost: torch.Tensor, row_mask: torch.Tensor,
-                         col_mask: torch.Tensor, clamp: float) -> torch.Tensor:
-    """Clamp real entries at `clamp` (max_distance + 1e-5, min_cost_matching's
-    rule); mask the rest to BIG."""
-    clamped = torch.clamp(cost, max=clamp)
+                         col_mask: torch.Tensor, max_distance: float) -> torch.Tensor:
+    """Clamp real entries at max_distance + 1e-5 (min_cost_matching's rule,
+    linear_assignment.py:58); mask the rest to BIG."""
+    clamped = torch.clamp(cost, max=_clamp_value(max_distance))
     live = row_mask[:, None] & col_mask[None, :]
     return torch.where(live, clamped, torch.full_like(clamped, BIG))

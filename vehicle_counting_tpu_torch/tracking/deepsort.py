@@ -26,7 +26,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from vehicle_counting_tpu_torch.models.reid import EMBED_DIM, reid_forward
+from vehicle_counting_tpu_torch.models.reid import EMBED_DIM, reid_embed
 from vehicle_counting_tpu_torch.ops.boxes import xyxy_to_tlwh
 from vehicle_counting_tpu_torch.ops.crops import gather_crops_batch, planar_copy
 from vehicle_counting_tpu_torch.ops.nms import sort_nms_mask
@@ -125,15 +125,19 @@ def _embed_compacted_chunks(gather_chunk, embed_chunk, valid_flat, chunk: int):
 
 def embed_detections_batch(frames, boxes, valid, reid_params, reid_stats, hp: DeepSortParams,
                            crop_gain: float = 1.0, crop_pad: Tuple[float, float] = (0.0, 0.0),
-                           dtype=torch.float32, planar: bool = True):
+                           dtype=None, planar: bool = None):
     """Batch-global chunked ReID embed: [B, N, F], every valid det embedded.
 
     frames: the uint8 crop source, planar [B, 3, H, W] or, with `planar`
-    False, interleaved [B, H, W, 3]; boxes [B, N, 4] xyxy source pixels
-    (mapped into the crop frame by crop_gain/crop_pad); valid [B, N].
-    Crops go through kernel K1 (`gather_crops_batch`), an interleaved
-    source on one planar copy.
+    False, interleaved [B, H, W, 3] (None: read from the shape, as the JAX
+    package does: planar where axis 1 is 3 and the last axis is not);
+    boxes [B, N, 4] xyxy source pixels (mapped into the crop frame by
+    crop_gain/crop_pad); valid [B, N]; dtype the ReID convolutions' (None:
+    f32). Crops go through kernel K1 (`gather_crops_batch`), an
+    interleaved source on one planar copy.
     """
+    if planar is None:
+        planar = frames.shape[1] == 3 and frames.shape[-1] != 3
     frames_planar = frames if planar else planar_copy(frames)
     b, n = valid.shape
     dev = valid.device
@@ -144,7 +148,7 @@ def embed_detections_batch(frames, boxes, valid, reid_params, reid_stats, hp: De
         return gather_crops_batch(frames_planar, fidx[sel], fb[sel], v)
 
     def embed_chunk(crops):
-        return reid_forward(reid_params, reid_stats, crops, dtype=dtype)
+        return reid_embed(reid_params, reid_stats, crops, dtype=dtype)
 
     feats = _embed_compacted_chunks(gather_chunk, embed_chunk, valid.reshape(b * n), hp.max_embed)
     return feats.reshape(b, n, -1)
@@ -152,7 +156,7 @@ def embed_detections_batch(frames, boxes, valid, reid_params, reid_stats, hp: De
 
 def embed_detections(frame, boxes, valid, reid_params, reid_stats, hp: DeepSortParams,
                      crop_gain: float = 1.0, crop_pad: Tuple[float, float] = (0.0, 0.0),
-                     dtype=torch.float32):
+                     dtype=None):
     """Crop + ReID embed of ALL of one frame's valid detections: [N, F].
     frame [H, W, 3] uint8 RGB; boxes [N, 4] xyxy source pixels; valid [N]."""
     return embed_detections_batch(frame[None], boxes[None], valid[None], reid_params, reid_stats, hp,
@@ -244,7 +248,7 @@ def deepsort_frame_core(states: TrackerState, feats, boxes, scores, classes, val
 
 def deepsort_frame(states: TrackerState, frame, boxes, scores, classes, valid, reid_params, reid_stats,
                    hp: DeepSortParams, crop_gain: float = 1.0, crop_pad: Tuple[float, float] = (0.0, 0.0),
-                   out_hw: Tuple[int, int] = None, dtype=torch.float32):
+                   out_hw: Tuple[int, int] = None, dtype=None):
     """One frame through all per-class trackers, crop + embed included.
 
     frame [H, W, 3] uint8 RGB, the crop source; boxes [N, 4] xyxy source
