@@ -131,7 +131,7 @@ Phases, each fatal on failure:
   stage     stage_bench at B=128 (reid bf16, chunks of 128), every stage;
   bench     bench with a short budget; its metric line is parsed;
   profile   the CLI with --profile on 128 frames, then profile_summary on
-            the trace it wrote;
+            the trace it wrote, with its convolution roofline (--convs);
   weights   the CLI with --weight and a ReID checkpoint, both made from
             seeds (an ultralytics-named .pt state dict and a .t7);
   weight cache  the CLI without --weight from a directory whose ./.cache
@@ -891,10 +891,10 @@ def embed_ab(dev, n_frames=128, per_frame=30):
             for i in range(0, crops.shape[0], chunk):
                 reid.reid_embed(rp, rs, crops[i : i + chunk], dtype=torch.bfloat16)
 
-    old, t = reid.FORCE_REID_BLOCK_KERNEL, {False: [], True: []}
+    old, t = reid.FORCE_PALLAS_REID_BLOCK, {False: [], True: []}
     try:
         for on in (False, True, True, False) * 2:  # the host's clock wanders: 4 turns each
-            reid.FORCE_REID_BLOCK_KERNEL = on
+            reid.FORCE_PALLAS_REID_BLOCK = on
             reid_block.reid_block64.launches = 0
             t[on].append(cuda_ms(embed, 5) / n_frames)
             if bool(reid_block.reid_block64.launches) != on:
@@ -902,7 +902,7 @@ def embed_ab(dev, n_frames=128, per_frame=30):
         print(f"embed ms/frame ({n_frames} frames x {per_frame} crops, chunks of {chunk}, bf16): "
               f"K5 off {[round(v, 4) for v in t[False]]}, K5 on {[round(v, 4) for v in t[True]]}")
         for on in (False, True):  # how much of that wall time the card is busy
-            reid.FORCE_REID_BLOCK_KERNEL = on
+            reid.FORCE_PALLAS_REID_BLOCK = on
             ev = device_events(embed)
             k5 = sum(ms for name, ms in ev if "reid_block_bf16" in name)
             total = sum(ms for _, ms in ev) / n_frames
@@ -910,7 +910,7 @@ def embed_ab(dev, n_frames=128, per_frame=30):
                   f"({100 * total / min(t[on]):.1f} % of the best wall time; torch.profiler), "
                   f"K5 kernel {k5 / n_frames:.4f} ms/frame, {len(ev) / n_frames:.2f} device ops/frame")
     finally:
-        reid.FORCE_REID_BLOCK_KERNEL = old
+        reid.FORCE_PALLAS_REID_BLOCK = old
     return {"off": min(t[False]), "on": min(t[True])}
 
 
@@ -1316,13 +1316,13 @@ def run_switched(dev, tmp, path, zones, conf, mapping):
     forced. Returns (launches, CSV rows)."""
     from vehicle_counting_tpu_torch.tracking import tracker
 
-    old_env, old_force = os.environ.get("FORCE_PALLAS_REID_BLOCK"), tracker.FORCE_CASCADE_KERNEL
+    old_env, old_force = os.environ.get("FORCE_PALLAS_REID_BLOCK"), tracker.FORCE_PALLAS_CASCADE
     os.environ["FORCE_PALLAS_REID_BLOCK"] = "1"
-    tracker.FORCE_CASCADE_KERNEL = False
+    tracker.FORCE_PALLAS_CASCADE = False
     try:
         _, launches, df = run_pipeline(dev, tmp, path, zones, conf, mapping, N_SWITCHED, "out_switched")
     finally:
-        tracker.FORCE_CASCADE_KERNEL = old_force
+        tracker.FORCE_PALLAS_CASCADE = old_force
         if old_env is None:
             os.environ.pop("FORCE_PALLAS_REID_BLOCK")
         else:
@@ -1463,15 +1463,15 @@ def check_parity(dev, path):
           f"track boxes equal: {torch.equal(tc[0], tg[0])}")
 
     # the same step on the card through the staged route (K4 per stage)
-    old = tracker.FORCE_CASCADE_KERNEL
-    tracker.FORCE_CASCADE_KERNEL = False
+    old = tracker.FORCE_PALLAS_CASCADE
+    tracker.FORCE_PALLAS_CASCADE = False
     try:
         assignment.match_stage_batched.launches = 0
         det_s, tout_s = step(dev)
         torch.cuda.synchronize()
         k4 = assignment.match_stage_batched.launches
     finally:
-        tracker.FORCE_CASCADE_KERNEL = old
+        tracker.FORCE_PALLAS_CASCADE = old
     if k4 <= 0:
         raise AssertionError("staged route: the assignment kernel was never launched")
     ts = [x.cpu() for x in tout_s]
@@ -1490,7 +1490,7 @@ def check_parity(dev, path):
             conf_thres=conf, iou_thres=0.45, max_det=300, dtype=torch.float32, frames_format="letterboxed_yuv420")
 
     def scan_ms(staged):
-        tracker.FORCE_CASCADE_KERNEL = False if staged else old
+        tracker.FORCE_PALLAS_CASCADE = False if staged else old
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1499,7 +1499,7 @@ def check_parity(dev, path):
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3 / b
         finally:
-            tracker.FORCE_CASCADE_KERNEL = old
+            tracker.FORCE_PALLAS_CASCADE = old
 
     scan_ms(False), scan_ms(True)  # warm-up
     t = {"k2": [], "staged": []}
@@ -1550,14 +1550,14 @@ def check_frame_graph(dev, path, conf, mapping):
     del frames
 
     def scan(states, det, feats, graph, staged):
-        old = step_mod.USE_FRAME_GRAPH, tracker.FORCE_CASCADE_KERNEL
+        old = step_mod.USE_FRAME_GRAPH, tracker.FORCE_PALLAS_CASCADE
         step_mod.USE_FRAME_GRAPH = None if graph else False
-        tracker.FORCE_CASCADE_KERNEL = False if staged else old[1]
+        tracker.FORCE_PALLAS_CASCADE = False if staged else old[1]
         try:
             with torch.no_grad():
                 return step_mod.tracker_scan(states, det, feats, hp=hp, src_hw=SRC_HW)
         finally:
-            step_mod.USE_FRAME_GRAPH, tracker.FORCE_CASCADE_KERNEL = old
+            step_mod.USE_FRAME_GRAPH, tracker.FORCE_PALLAS_CASCADE = old
 
     counters = kernel_counters()
     runs, launches = {}, {}
@@ -1591,12 +1591,12 @@ def check_frame_graph(dev, path, conf, mapping):
     # what the runner adds to the wrappers' counts per replay
     measured = {}
     for staged in (False, True):
-        old = tracker.FORCE_CASCADE_KERNEL
-        tracker.FORCE_CASCADE_KERNEL = False if staged else old
+        old = tracker.FORCE_PALLAS_CASCADE
+        tracker.FORCE_PALLAS_CASCADE = False if staged else old
         try:
             runner = step_mod.frame_runner(hp, SRC_HW, dev)
         finally:
-            tracker.FORCE_CASCADE_KERNEL = old
+            tracker.FORCE_PALLAS_CASCADE = old
         events = device_events(runner._step)
         seen = {"cascade": sum("cascade_kernel" in name for name, _ in events),
                 "match_stage": sum("match_stage_kernel" in name for name, _ in events),
@@ -1924,14 +1924,14 @@ def check_scan(dev, fg):
     stages = min(hp.tracker.max_age, hp.tracker.capacity) + 1  # the staged route's fixed schedule
 
     def scan(states, det, feats, h, graph, staged):
-        old = step_mod.USE_FRAME_GRAPH, tracker.FORCE_CASCADE_KERNEL
+        old = step_mod.USE_FRAME_GRAPH, tracker.FORCE_PALLAS_CASCADE
         step_mod.USE_FRAME_GRAPH = None if graph else False
-        tracker.FORCE_CASCADE_KERNEL = False if staged else old[1]
+        tracker.FORCE_PALLAS_CASCADE = False if staged else old[1]
         try:
             with torch.no_grad():
                 return step_mod.tracker_scan(states, det, feats, hp=h, src_hw=SRC_HW)
         finally:
-            step_mod.USE_FRAME_GRAPH, tracker.FORCE_CASCADE_KERNEL = old
+            step_mod.USE_FRAME_GRAPH, tracker.FORCE_PALLAS_CASCADE = old
 
     counters = kernel_counters()
     runs, launches = {}, {}
@@ -2857,14 +2857,22 @@ def run_profile(dev, tmp, path, zones, conf, mapping):
                                     extra_args=("--profile", trace_dir, "--check_numerics", "--no_visualize"))
     trace_path = profile_summary.find_trace(trace_dir)
     print(f"trace {os.path.getsize(trace_path) / 1e6:.1f} MB")
-    if profile_summary.main([trace_dir, "-n", "12", "--frames", str(N_SWITCHED)]) != 0:
+    if profile_summary.main([trace_dir, "-n", "12", "--frames", str(N_SWITCHED), "--convs"]) != 0:
         raise AssertionError("profile_summary failed")
-    summ = profile_summary.summarize(profile_summary.load_device_events(trace_path), frames=N_SWITCHED)
+    events = profile_summary.read_events(trace_path)
+    summ = profile_summary.summarize(profile_summary.device_events(events), frames=N_SWITCHED)
     own = summ["by_category"].get("vct kernels (csrc/)", 0.0)
     if summ["device_kernels"] <= 0 or own <= 0:
         raise AssertionError(f"--profile: the trace shows no device kernels / none of csrc/: {summ['by_category']}")
+    convs = profile_summary.conv_calls(events)
+    conv_us = sum(c.device_us for c in convs)
+    if not convs or conv_us <= 0:
+        raise AssertionError(f"--convs: {len(convs)} convolutions with {conv_us} us of device kernels")
     return {"fps_profiled": fps, "kernels_per_frame": summ["kernels_per_frame"], "busy_share": summ["busy_share"],
-            "window_ms": summ["window_us"] / 1e3, "by_category_us": summ["by_category"], "launches": launches}
+            "window_ms": summ["window_us"] / 1e3, "by_category_us": summ["by_category"], "launches": launches,
+            "conv_calls": len(convs), "conv_calls_without_kernels": sum(c.device_us <= 0 for c in convs),
+            "conv_device_ms": conv_us / 1e3,
+            "conv_tflops": sum(c.flops for c in convs) / (conv_us * 1e-6) / 1e12}
 
 
 def seeded_yolo_pt(path, rng, variant=VARIANT):
@@ -3140,8 +3148,8 @@ def reid_train_throughput(dev, b=64, nc=751, steps=60, warm=5, b_feat=512):
     stats = state["stats"]
     feat_ms = cuda_ms(lambda: rt.extract_features(params, stats, feats_in), 10)
     plain = rt.extract_features(params, stats, feats_in)
-    prev = reid_mod.FORCE_REID_BLOCK_KERNEL
-    reid_mod.FORCE_REID_BLOCK_KERNEL = True
+    prev = reid_mod.FORCE_PALLAS_REID_BLOCK
+    reid_mod.FORCE_PALLAS_REID_BLOCK = True
     try:
         reid_block.reid_block64.launches = 0
         fused = rt.extract_features(params, stats, feats_in)
@@ -3149,7 +3157,7 @@ def reid_train_throughput(dev, b=64, nc=751, steps=60, warm=5, b_feat=512):
         k5 = reid_block.reid_block64.launches
         k5_ms = cuda_ms(lambda: rt.extract_features(params, stats, feats_in), 10)
     finally:
-        reid_mod.FORCE_REID_BLOCK_KERNEL = prev
+        reid_mod.FORCE_PALLAS_REID_BLOCK = prev
     err = float((fused - plain).abs().max())
     print(f"extract_features B={b_feat}: cuDNN {feat_ms:.4f} ms, through K5 f32 {k5_ms:.4f} ms ({k5} K5 launches per "
           f"call, max |diff| {err:.3e} against cuDNN's)")

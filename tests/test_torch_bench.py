@@ -29,6 +29,9 @@ from vehicle_counting_tpu_torch.tools import profile_summary
 from vehicle_counting_tpu_torch.utils import device as device_mod
 from vehicle_counting_tpu_torch.utils import transfer
 from vehicle_counting_tpu_torch.utils.profiling import trace
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 # the synthetic boxes of stage_bench want a source larger than 200 px each way
 SMALL = dict(src_hw=(216, 384), size=384, variant="yolov5n")
@@ -309,6 +312,46 @@ def _hand_made_trace(path):
     ]
     with open(path, "w") as f:
         json.dump({"traceEvents": ev}, f)
+
+
+def test_conv_roofline_on_a_hand_made_trace(tmp_path, capsys):
+    """One bf16 convolution x [2, 8, 16, 16] * w [4, 8, 3, 3], stride 2,
+    padding 1: out 8 x 8, 2 * 2 * 4 * 64 * 8 * 9 FLOPs. Its two launches
+    (in its span, on its thread) ran kernels of 20 and 5 us; a launch after
+    it and one on another thread are not its."""
+    args = {"Input Dims": [[2, 8, 16, 16], [4, 8, 3, 3], [], [], [], [], [], [], []],
+            "Input type": ["c10::BFloat16", "c10::BFloat16", "", "ScalarList", "ScalarList", "ScalarList", "Scalar",
+                           "ScalarList", "Scalar"],
+            "Concrete Inputs": ["", "", "", "[2, 2]", "[1, 1]", "[1, 1]", "False", "[0, 0]", "1"]}
+    ev = [{"ph": "X", "cat": "cpu_op", "name": "aten::convolution", "pid": 1, "tid": 1, "ts": 100, "dur": 50, "args": args}]
+    for corr, ts, tid, dur in ((7, 110, 1, 20), (8, 140, 1, 5), (9, 160, 1, 100), (10, 120, 2, 100)):
+        ev.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "pid": 1, "tid": tid, "ts": ts,
+                   "dur": 2, "args": {"correlation": corr}})
+        ev.append({"ph": "X", "cat": "kernel", "name": f"k{corr}", "pid": 0, "tid": 7, "ts": ts + 50, "dur": dur,
+                   "args": {"correlation": corr}})
+    path = str(tmp_path / "t.json")
+    with open(path, "w") as f:
+        json.dump({"traceEvents": ev}, f)
+    (cc,) = profile_summary.conv_calls(profile_summary.read_events(path))
+    assert cc == ("x=[2, 8, 16, 16] w=[4, 8, 3, 3] s=2 p=1 g=1", "c10::BFloat16", 2 * 2 * 4 * 64 * 8 * 9, 25.0)
+    assert profile_summary.main([path, "--convs"]) == 0
+    out = capsys.readouterr().out
+    tflops = cc.flops / 25e-6 / 1e12
+    assert f"{tflops:7.1f} TF/s ({100 * tflops / 989:5.1f} %)" in out and "ALL convs: 25.0 us over 1 calls" in out
+
+
+def test_trace_records_conv_shapes(tmp_path, capsys):
+    """`trace` records the host ops' shapes: a CPU convolution (stride 2,
+    groups 2) gets its FLOPs from them, and no device time."""
+    x, w = torch.randn(1, 4, 9, 9), torch.randn(6, 2, 3, 3)
+    with trace(str(tmp_path / "tr")) as t:
+        y = torch.nn.functional.conv2d(x, w, stride=2, padding=1, groups=2)
+    calls = profile_summary.conv_calls(profile_summary.read_events(t["path"]))
+    assert [c.shape for c in calls] == ["x=[1, 4, 9, 9] w=[6, 2, 3, 3] s=2 p=1 g=2"]
+    assert calls[0].flops == 2 * y.numel() * 2 * 3 * 3 and calls[0].dtype == "float"
+    assert calls[0].device_us == 0
+    profile_summary.print_conv_roofline(calls, 1, "us")
+    assert "no device kernels under them (a CPU trace)" in capsys.readouterr().out
 
 
 def test_own_kernels_are_read_from_the_sources():

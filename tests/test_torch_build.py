@@ -8,6 +8,9 @@ import pytest
 
 from vehicle_counting_tpu_torch import _build
 from vehicle_counting_tpu_torch.ops import assignment, cascade, conv_s2, crops, noop, reid_block
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 class _Fn:

@@ -37,6 +37,9 @@ from vehicle_counting_tpu_torch.tracking.deepsort import (
     init_states,
 )
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams, TrackerState, init_state, tracker_step
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 _INT_LEAVES = ("track_id", "state", "hits", "age", "tsu", "gallery_count", "pending_count", "next_id", "overflow")
 
@@ -111,7 +114,7 @@ def test_scan_equals_batched_on_a_tracking_scenario(route, monkeypatch):
     batched on every output and state leaf, and == JAX's scan on the
     outputs and integer state."""
     if route == "staged":
-        monkeypatch.setattr(trk, "FORCE_CASCADE_KERNEL", False)
+        monkeypatch.setattr(trk, "FORCE_PALLAS_CASCADE", False)
     hp_scan = _hp()._replace(class_mode="scan")
     hp_bat = _hp()
     jhp = JDP(tracker=JTP(capacity=hp_scan.tracker.capacity, max_age=hp_scan.tracker.max_age, n_init=3,
@@ -259,7 +262,7 @@ def test_runner_scan_equals_plain_loop(route, monkeypatch):
     runner's static buffers, the graph's body) == the plain loop on every
     state leaf and output, and == the batched runner."""
     if route == "staged":
-        monkeypatch.setattr(trk, "FORCE_CASCADE_KERNEL", False)
+        monkeypatch.setattr(trk, "FORCE_PALLAS_CASCADE", False)
     hp_scan = _hp()._replace(class_mode="scan")
     runner, runner_bat = tgraph.FrameRunner(hp_scan, OUT_HW, "cpu"), tgraph.FrameRunner(_hp(), OUT_HW, "cpu")
     st_plain, st_run, st_bat = init_states(hp_scan), init_states(hp_scan), init_states(_hp())
@@ -305,7 +308,7 @@ def test_scan_graph_equals_eager_on_card(route, monkeypatch):
     from vehicle_counting_tpu_torch.ops import cascade
 
     if route == "staged":
-        monkeypatch.setattr(trk, "FORCE_CASCADE_KERNEL", False)
+        monkeypatch.setattr(trk, "FORCE_PALLAS_CASCADE", False)
     hp = _hp()._replace(class_mode="scan")
     outs = {}
     for graph in (False, True):

@@ -13,7 +13,9 @@ from vehicle_counting_tpu.models.layers import conv_block as j_conv_block
 from vehicle_counting_tpu.ops.pallas.conv_s2 import conv1_s2_silu_pallas
 from vehicle_counting_tpu_torch.models.convert import conv1_s2_from_jax
 from vehicle_counting_tpu_torch.ops import conv_s2 as tcs
-from vehicle_counting_tpu_torch.testing import conv1_s2_inputs
+from vehicle_counting_tpu_torch.testing import conv1_s2_inputs, one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 # f32 on both sides; only the conv's summation order differs
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -14,9 +14,11 @@ from vehicle_counting_tpu.tracking import deepsort as jds
 from vehicle_counting_tpu.tracking.tracker import TrackerParams as JTP
 from vehicle_counting_tpu_torch.models.convert import reid_params_from_jax
 from vehicle_counting_tpu_torch.ops import crops as tcrops
-from vehicle_counting_tpu_torch.testing import crop_boxes
+from vehicle_counting_tpu_torch.testing import crop_boxes, one_torch_thread
 from vehicle_counting_tpu_torch.tracking import deepsort as tds
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 def _inputs(seed, b=3, h=40, w=64, d=64):

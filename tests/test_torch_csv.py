@@ -31,6 +31,9 @@ import vehicle_counting_tpu.configs as jcfg
 import vehicle_counting_tpu_torch.configs as pcfg
 from vehicle_counting_tpu.pipeline import CountingPipeline as JaxPipeline
 from vehicle_counting_tpu_torch.pipeline import CountingPipeline as PortPipeline
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 H, W, N_FRAMES = 240, 320, 16
 BOX_ATOL = 1e-3

@@ -30,6 +30,9 @@ from vehicle_counting_tpu_torch.models.yolo import YoloConfig
 from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, letterbox
 from vehicle_counting_tpu_torch.pipeline import CountingPipeline as PortPipeline
 from vehicle_counting_tpu_torch.pipeline.step import detect_only_step
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 BOX_ATOL, SCORE_ATOL = 1e-3, 1e-5
 COLUMNS = ["frame_id", "x1", "y1", "x2", "y2", "score", "label"]

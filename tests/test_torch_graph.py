@@ -26,11 +26,13 @@ from vehicle_counting_tpu_torch.ops import assignment as tasg
 from vehicle_counting_tpu_torch.ops import cascade as tcas
 from vehicle_counting_tpu_torch.pipeline import CountingPipeline
 from vehicle_counting_tpu_torch.pipeline import step as step_mod
-from vehicle_counting_tpu_torch.testing import association_problem
+from vehicle_counting_tpu_torch.testing import association_problem, one_torch_thread
 from vehicle_counting_tpu_torch.tracking import graph as tgraph
 from vehicle_counting_tpu_torch.tracking import tracker as trk
 from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, frame_inputs, init_states
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams, TrackerState
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 OUT_HW = (260, 300)
 C, K, MAX_AGE, FEAT = 3, 12, 3, 32
@@ -71,7 +73,7 @@ def test_runner_eager_equals_plain_loop(route, monkeypatch):
     state leaf and output, over 48 seeded frames in 6 batches, with births,
     misses, deletions and a class absent for ten frames."""
     if route == "staged":
-        monkeypatch.setattr(trk, "FORCE_CASCADE_KERNEL", False)
+        monkeypatch.setattr(trk, "FORCE_PALLAS_CASCADE", False)
     hp = _hp()
     runner = tgraph.FrameRunner(hp, OUT_HW, "cpu")
     assert runner.graph is None  # no graph on the CPU
@@ -225,7 +227,7 @@ def test_frame_runner_cache_keys_on_route(monkeypatch):
     monkeypatch.setattr(step_mod, "FrameRunner", lambda *a: built.append(a) or object())
     a = step_mod.frame_runner(hp, OUT_HW, "cpu")
     assert step_mod.frame_runner(hp, OUT_HW, "cpu") is a and len(built) == 1
-    monkeypatch.setattr(trk, "FORCE_CASCADE_KERNEL", False)
+    monkeypatch.setattr(trk, "FORCE_PALLAS_CASCADE", False)
     assert step_mod.frame_runner(hp, OUT_HW, "cpu") is not a and len(built) == 2
     assert step_mod.frame_runner(_hp(max_age=5), OUT_HW, "cpu") is not a and len(built) == 3
     step_mod.free_frame_runner(hp, OUT_HW, "cpu")  # this configuration's, on both routes; no other
@@ -406,7 +408,7 @@ def test_graph_equals_eager_on_card(route, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA graph and the association kernels exist only on the card")
     if route == "staged":
-        monkeypatch.setattr(trk, "FORCE_CASCADE_KERNEL", False)
+        monkeypatch.setattr(trk, "FORCE_PALLAS_CASCADE", False)
     hp = _hp()
     batches = _batches(34)
     step_mod.free_frame_runners()

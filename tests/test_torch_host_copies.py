@@ -21,6 +21,9 @@ import vehicle_counting_tpu_torch.counting.polygon as ppoly
 import vehicle_counting_tpu_torch.counting.visualize as pvis
 import vehicle_counting_tpu_torch.data.video as pvideo
 import vehicle_counting_tpu_torch.utils.colors as pcolors
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 W, H, N_FRAMES = 160, 120, 11
 ZONE = [[20, 20], [140, 25], [150, 100], [30, 110]]

@@ -32,9 +32,11 @@ from vehicle_counting_tpu_torch.ops import crops as tcrops
 from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw
 from vehicle_counting_tpu_torch.pipeline import CountingPipeline as PortPipeline
 from vehicle_counting_tpu_torch.pipeline.step import pipeline_batch_step as t_step
-from vehicle_counting_tpu_torch.testing import crop_boxes
+from vehicle_counting_tpu_torch.testing import crop_boxes, one_torch_thread
 from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 jl = importlib.import_module("vehicle_counting_tpu.ops.letterbox")
 tl = importlib.import_module("vehicle_counting_tpu_torch.ops.letterbox")

@@ -21,6 +21,9 @@ from vehicle_counting_tpu_torch.models import yolo as tyolo
 from vehicle_counting_tpu_torch.models.convert import reid_params_from_jax, yolo_params_from_jax
 from vehicle_counting_tpu_torch.ops.nms import batched_nms as t_batched_nms
 from vehicle_counting_tpu_torch.ops.nms import stable_topk
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 # conv summation order differs between XLA:CPU and oneDNN
 CONV_TOL = 1e-4

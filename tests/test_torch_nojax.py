@@ -10,6 +10,10 @@ import sys
 
 import pytest
 
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = [

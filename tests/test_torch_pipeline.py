@@ -10,6 +10,7 @@ import types
 import cv2
 import numpy as np
 import pandas as pd
+import pytest
 import torch
 
 from test_torch_slice import run_both
@@ -24,6 +25,9 @@ from vehicle_counting_tpu_torch.ops.letterbox import (
 from vehicle_counting_tpu_torch.pipeline import CountingPipeline
 from vehicle_counting_tpu_torch.pipeline import step as step_mod
 from vehicle_counting_tpu_torch.tracking.deepsort import embed_detections_batch
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 W, H, N_FRAMES = 320, 240, 40
 

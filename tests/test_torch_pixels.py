@@ -9,6 +9,10 @@ import torch
 
 import jax.numpy as jnp
 
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
+
 # both ops packages re-export a `letterbox` function under the module's name
 jlb = importlib.import_module("vehicle_counting_tpu.ops.letterbox")
 tlb = importlib.import_module("vehicle_counting_tpu_torch.ops.letterbox")

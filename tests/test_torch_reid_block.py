@@ -22,7 +22,9 @@ from vehicle_counting_tpu_torch.models.convert import reid_block64_from_jax, rei
 from vehicle_counting_tpu_torch.ops import conv_s2 as tcs
 from vehicle_counting_tpu_torch.ops import reid_block as trb
 from vehicle_counting_tpu_torch.ops import weight_cache
-from vehicle_counting_tpu_torch.testing import reid_block_params
+from vehicle_counting_tpu_torch.testing import one_torch_thread, reid_block_params
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 # f32: conv summation order differs (XLA:CPU patch matmul vs oneDNN);
 # bf16: h1 and the output are rounded to bf16 (2^-8 relative), so a sum
@@ -75,7 +77,7 @@ def test_reid_forward_with_block_matches_jax(reid_weights, monkeypatch):
     crops = np.random.default_rng(32).standard_normal((4, 50, 50, 3)).astype(np.float32)
     monkeypatch.setattr(jreid, "FORCE_PALLAS_REID_BLOCK", True)
     want, _ = jreid.reid_forward(jp, js, jnp.asarray(crops), train=False, reid=True)
-    monkeypatch.setattr(treid, "FORCE_REID_BLOCK_KERNEL", True)
+    monkeypatch.setattr(treid, "FORCE_PALLAS_REID_BLOCK", True)
     calls = []
     monkeypatch.setattr(treid, "reid_block64", lambda *a: calls.append(1) or trb.reid_block64(*a))
     got = treid.reid_embed(tp, ts, torch.from_numpy(crops))
@@ -92,7 +94,7 @@ def test_reid_forward_with_block_after_in_place_update_matches_jax(reid_weights,
     tp = copy.deepcopy(tp)  # the fixture's tensors stay as they are
     crops = torch.from_numpy(np.random.default_rng(36).standard_normal((4, 50, 50, 3)).astype(np.float32))
     monkeypatch.setattr(jreid, "FORCE_PALLAS_REID_BLOCK", True)
-    monkeypatch.setattr(treid, "FORCE_REID_BLOCK_KERNEL", True)
+    monkeypatch.setattr(treid, "FORCE_PALLAS_REID_BLOCK", True)
     before = treid.reid_embed(tp, ts, crops)
     delta = (np.random.default_rng(37).standard_normal((3, 3, 64, 64)) * 0.05).astype(np.float32)  # HWIO
     w = tp["layer1_0"]["conv1"]["w"]
@@ -111,10 +113,10 @@ def test_reid_forward_with_block_after_in_place_update_matches_jax(reid_weights,
     (None, None, 0), (None, "1", 2), (True, None, 2), (False, "1", 0), (True, "0", 0),
 ])
 def test_block_switch(reid_weights, monkeypatch, switch, env, expect):
-    """Off by default; FORCE_REID_BLOCK_KERNEL or FORCE_PALLAS_REID_BLOCK
-    turns it on, =0 / False wins, as in the JAX package."""
+    """Off by default; the module switch FORCE_PALLAS_REID_BLOCK or the
+    environment variable of the same name turns it on, =0 / False wins, as in the JAX package."""
     _, _, (tp, ts) = reid_weights
-    monkeypatch.setattr(treid, "FORCE_REID_BLOCK_KERNEL", switch)
+    monkeypatch.setattr(treid, "FORCE_PALLAS_REID_BLOCK", switch)
     if env is None:
         monkeypatch.delenv("FORCE_PALLAS_REID_BLOCK", raising=False)
     else:

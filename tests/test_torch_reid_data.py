@@ -8,6 +8,9 @@ import pytest
 
 from vehicle_counting_tpu.train.data import ImageFolderDataset as JDataset
 from vehicle_counting_tpu_torch.train.data import ImageFolderDataset
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 @pytest.fixture

@@ -383,17 +383,17 @@ def test_kernel_routes_and_libraries():
     assert art_mod._kernel_modes(hp, "cpu") == {"crops": "plain", "cascade": "plain"}
     big = hp._replace(tracker=TrackerParams(capacity=300))
     assert art_mod._kernel_modes(big, "cuda")["cascade"] == "staged-K4"
-    old = reid.FORCE_REID_BLOCK_KERNEL
-    reid.FORCE_REID_BLOCK_KERNEL = True
+    old = reid.FORCE_PALLAS_REID_BLOCK
+    reid.FORCE_PALLAS_REID_BLOCK = True
     try:
         modes = art_mod._kernel_modes(hp, "cuda")
     finally:
-        reid.FORCE_REID_BLOCK_KERNEL = old
+        reid.FORCE_PALLAS_REID_BLOCK = old
     step = art_mod.ExportedStep(entry="m:f", static={}, in_specs=[], platform="cuda", kernel_modes=modes)
     assert step.kernels == ["cascade", "crops", "reid_block"]
     assert art_mod.ExportedStep(entry="m:f", static={}, in_specs=[], platform="cuda",
                                 kernel_modes=art_mod._kernel_modes(big, "cuda")).kernels == ["assignment", "crops"]
-    assert tracker.FORCE_CASCADE_KERNEL is None
+    assert tracker.FORCE_PALLAS_CASCADE is None
     _build.check_prebuilt("crops", _build.library_path("crops"))
     with pytest.raises(ValueError, match="not the cascade kernel library"):
         _build.check_prebuilt("cascade", _build.library_path("crops"))

@@ -32,6 +32,9 @@ from vehicle_counting_tpu_torch.ops.letterbox import (
 from vehicle_counting_tpu_torch.pipeline.step import pipeline_batch_step as t_step
 from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams
+from vehicle_counting_tpu_torch.testing import one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 K, C, B = 16, 4, 4
 MARGIN = 1e-4

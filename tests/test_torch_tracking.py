@@ -24,12 +24,14 @@ from vehicle_counting_tpu.tracking.tracker import _associate_xla, _cascade_kerne
 from vehicle_counting_tpu.tracking import tracker as jtrk
 from vehicle_counting_tpu_torch.ops import assignment as tasg
 from vehicle_counting_tpu_torch.ops import cascade as tcas
-from vehicle_counting_tpu_torch.testing import association_problem
+from vehicle_counting_tpu_torch.testing import association_problem, one_torch_thread
 from vehicle_counting_tpu_torch.tracking import kalman as tk
 from vehicle_counting_tpu_torch.tracking import tracker as trk
 from vehicle_counting_tpu_torch.tracking.assignment import BIG, solve_assignment_sub as t_solve
 from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, deepsort_frame_core, init_states
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 _staged = trk._associate_staged
 NAMES = ["gated", "iou", "lvl_of", "tentative", "track_id", "iou_order", "det_valid", "det_order"]
@@ -218,7 +220,7 @@ def test_frame_core_matches_jax_over_frames(route, monkeypatch):
     """Both association routes of the port: auto (K2) and the staged
     route forced (K4 per stage)."""
     if route == "staged":
-        monkeypatch.setattr(trk, "FORCE_CASCADE_KERNEL", False)
+        monkeypatch.setattr(trk, "FORCE_PALLAS_CASCADE", False)
     calls = []
     monkeypatch.setattr(trk, "_associate_staged", lambda *a: calls.append(1) or _staged(*a))
     confirmed, jst, tst = _run_frames(_scenario(20), 12, 6)

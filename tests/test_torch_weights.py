@@ -23,7 +23,9 @@ from test_reid import TorchReidNet
 from vehicle_counting_tpu.models import convert as jconvert
 from vehicle_counting_tpu.models import reid as jreid
 from vehicle_counting_tpu_torch.models import convert, reid
-from vehicle_counting_tpu_torch.testing import fake_reid_state_dict, fake_yolov5_state_dict
+from vehicle_counting_tpu_torch.testing import fake_reid_state_dict, fake_yolov5_state_dict, one_torch_thread
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_torch_thread)
 
 
 @pytest.fixture(scope="module")

@@ -120,6 +120,12 @@ def fuse_conv_bn(
     return w.astype(np.float32), b.astype(np.float32)
 
 
+def oihw_to_hwio(w: np.ndarray) -> np.ndarray:
+    """Torch's OIHW conv weights -> JAX's HWIO, in numpy (the layout the
+    kernels K5 and K6 take)."""
+    return np.transpose(w, (2, 3, 1, 0))
+
+
 # ---------------------------------------------------------------------------
 # tolerant torch-checkpoint loading (no ultralytics import required)
 # ---------------------------------------------------------------------------
@@ -289,7 +295,7 @@ CONV_LAYERS = (0, 1, 3, 5, 7, 10, 14, 18, 21)
 C3_LAYERS = (2, 4, 6, 8, 13, 17, 20, 23)
 
 
-def yolov5_state_dict_to_params(state_dict: Dict[str, np.ndarray], device=None) -> Dict[str, Any]:
+def yolov5_state_dict_to_pytree(state_dict: Dict[str, np.ndarray], device=None) -> Dict[str, Any]:
     """Map an ultralytics v6.0 DetectionModel state dict onto the parameter
     tree of models/yolo.py (conv+BN folded, weights OIHW, f32 tensors)."""
     sd = _strip_prefix(dict(state_dict))
@@ -318,9 +324,9 @@ def load_yolov5_weights(path: str, device=None) -> Dict[str, Any]:
     if path.endswith(".npz"):
         data = np.load(path)
         sd = {k: data[k] for k in data.files}
-        return yolov5_state_dict_to_params(sd, device)
+        return yolov5_state_dict_to_pytree(sd, device)
     ckpt = load_torch_checkpoint(path)
-    return yolov5_state_dict_to_params(extract_state_dict(ckpt), device)
+    return yolov5_state_dict_to_pytree(extract_state_dict(ckpt), device)
 
 
 def checkpoint_anchors(state_dict: Dict[str, np.ndarray]):

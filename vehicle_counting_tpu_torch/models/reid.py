@@ -19,8 +19,8 @@ from the reference's `ckpt.t7` by `load_reid_weights`.
 
 The two stage-1 blocks (64 channels at 25x25) can run as one fused kernel
 each (K5, `ops/reid_block.py`), off by default as in the JAX package and
-switched by `FORCE_REID_BLOCK_KERNEL` or the environment variable
-`FORCE_PALLAS_REID_BLOCK` (`_reid_block_on`).
+switched by the module's `FORCE_PALLAS_REID_BLOCK` or the environment
+variable of the same name (`_reid_block_on`).
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ from vehicle_counting_tpu_torch.ops.reid_block import fold_bn, hwio, reid_block6
 from vehicle_counting_tpu_torch.ops.weight_cache import cached
 from vehicle_counting_tpu_torch.utils.device import on_device
 
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 EMBED_DIM = 512
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
@@ -105,19 +107,21 @@ def _basic_block(p, s, x, stride: int, dtype):
     return torch.relu(x + y)
 
 
-# Counterpart of the JAX `models/reid.py::FORCE_PALLAS_REID_BLOCK`. None:
-# auto = OFF, as in the JAX package; True: run the fused stage-1 block
-# (K5); False: never. The environment variable FORCE_PALLAS_REID_BLOCK
-# (=1 on, =0 off) drives both packages.
-FORCE_REID_BLOCK_KERNEL = None
+# The JAX package's switch under its own name, so that a line written for
+# `vehicle_counting_tpu.models.reid` works here unchanged. None: auto = OFF,
+# as in the JAX package; True: run the fused stage-1 block (K5, its plain
+# version on CPU tensors); False: never, whatever the environment says. The
+# environment variable FORCE_PALLAS_REID_BLOCK (=1 on, =0 off) drives both
+# packages.
+FORCE_PALLAS_REID_BLOCK = None
 
 
 def _reid_block_on() -> bool:
     """The JAX `_reid_block_mode` decision: fused stage-1 block or not."""
     env = os.environ.get("FORCE_PALLAS_REID_BLOCK")
-    if FORCE_REID_BLOCK_KERNEL is False or env == "0":
+    if FORCE_PALLAS_REID_BLOCK is False or env == "0":
         return False
-    return FORCE_REID_BLOCK_KERNEL is True or env == "1"
+    return FORCE_PALLAS_REID_BLOCK is True or env == "1"
 
 
 def _hwio_of(w: torch.Tensor) -> torch.Tensor:
@@ -329,7 +333,7 @@ def _tree_to(tree, device):
 # torch .t7 conversion (name-mapped, BN kept explicit)
 # ---------------------------------------------------------------------------
 
-def reid_state_dict_to_params(sd, device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+def reid_state_dict_to_pytree(sd, device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Map the reference's `net_dict` names onto (params, batch_stats).
 
     Torch layout: conv.0/conv.1 stem; layer{1..4}.{0,1}.conv1/bn1/conv2/bn2
@@ -404,7 +408,7 @@ def load_reid_weights(path: str, device=None) -> Tuple[Dict[str, Any], Dict[str,
         )
 
         sd = extract_state_dict(load_torch_checkpoint(path))
-    return reid_state_dict_to_params(sd, device)
+    return reid_state_dict_to_pytree(sd, device)
 
 
 def cast_conv_weights(params, dtype: torch.dtype):

@@ -24,11 +24,12 @@ import numpy as np
 import torch
 
 from vehicle_counting_tpu_torch import _build
+from vehicle_counting_tpu_torch.models.reid import IMAGENET_MEAN, IMAGENET_STD
 from vehicle_counting_tpu_torch.ops import true_div
 
 CROP_SIZE = 50
-_MEAN = np.asarray((0.485, 0.456, 0.406), np.float32)
-_STD = np.asarray((0.229, 0.224, 0.225), np.float32)
+_MEAN = np.asarray(IMAGENET_MEAN, np.float32)
+_STD = np.asarray(IMAGENET_STD, np.float32)
 
 
 def crop_boxes_to_bounds(boxes_xyxy: torch.Tensor, height: int, width: int):

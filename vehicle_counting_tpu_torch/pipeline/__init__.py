@@ -196,6 +196,7 @@ class CountingPipeline:
             capacity=self.capacity,
             feat_dim=512,
             budget=int(tc.get("NN_BUDGET", 60)),
+            pending_cap=8,
             max_dist=float(tc.get("MAX_DIST", 0.2)),
             max_iou_distance=float(tc.get("MAX_IOU_DISTANCE", 0.6)),
             max_age=int(tc.get("MAX_AGE", 30)),

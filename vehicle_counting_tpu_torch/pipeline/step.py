@@ -50,7 +50,7 @@ from vehicle_counting_tpu_torch.tracking.graph import FrameRunner
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerOutputs
 
 # The frame scan's launch path, in the manner of
-# `tracker.FORCE_CASCADE_KERNEL`. None: CUDA tensors replay the captured
+# `tracker.FORCE_PALLAS_CASCADE`. None: CUDA tensors replay the captured
 # frame graph, CPU tensors run the eager loop; False: the eager loop on the
 # card too (for comparing the two). A capture that fails raises: there is
 # no fallback to the eager loop.

@@ -16,6 +16,19 @@ from vehicle_counting_tpu_torch.tracking.assignment import BIG
 from vehicle_counting_tpu_torch.tracking.tracker import INFTY_COST
 
 
+def one_torch_thread():
+    """Generator for a module-scoped autouse pytest fixture: torch on one
+    intra-op thread while the module's tests run, the count restored after.
+    The test suite runs several workers at once, and more threads per
+    worker only contend."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def association_problem(rng: np.random.Generator, c: int, k: int, max_age: int,
                         kind: str = "random") -> Dict[str, np.ndarray]:
     """[C]-batched association operands like one tracker frame produces.

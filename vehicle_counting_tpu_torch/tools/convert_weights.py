@@ -83,13 +83,13 @@ def main(argv=None):
     # validate the conversion end-to-end before writing: the same loaders
     # run will use must accept the dict
     if args.kind == "yolov5":
-        from vehicle_counting_tpu_torch.models.convert import yolov5_state_dict_to_params
+        from vehicle_counting_tpu_torch.models.convert import yolov5_state_dict_to_pytree
 
-        yolov5_state_dict_to_params(sd)
+        yolov5_state_dict_to_pytree(sd)
     else:
-        from vehicle_counting_tpu_torch.models.reid import reid_state_dict_to_params
+        from vehicle_counting_tpu_torch.models.reid import reid_state_dict_to_pytree
 
-        reid_state_dict_to_params(sd)
+        reid_state_dict_to_pytree(sd)
     np.savez(args.output, **sd)
     print(f"wrote {len(sd)} arrays to {args.output}")
 

@@ -6,9 +6,13 @@ this workload on the card: the top device kernels by self time, self time
 by category (convolution/GEMM, elementwise/index, this package's own
 kernels, memcpy), the share of the traced window in which the card was
 busy, device kernels per frame (with --frames) and the longest idle gaps.
+With --convs, a roofline table of the convolutions: per distinct shape,
+the device time of the kernels each `aten::convolution` launched, its
+FLOPs from the recorded shapes, and the achieved share of the H100's
+dense peak for its type.
 
 Usage:
-    python -m vehicle_counting_tpu_torch.tools.profile_summary <dir-or-trace.json> [-n TOP] [--frames N]
+    python -m vehicle_counting_tpu_torch.tools.profile_summary <dir-or-trace.json> [-n TOP] [--frames N] [--convs]
 
 Only `json` and the standard library: no profiler package is needed to
 read a trace.
@@ -17,6 +21,8 @@ read a trace.
 from __future__ import annotations
 
 import argparse
+import ast
+import bisect
 import glob
 import json
 import os
@@ -61,15 +67,101 @@ def find_trace(path: str) -> str:
     return max(hits, key=os.path.getmtime)
 
 
-def load_device_events(trace_path: str) -> List[DeviceEvent]:
-    """The device's kernels, copies and memsets of a Chrome trace, by start."""
+def read_events(trace_path: str) -> List[dict]:
+    """Every event of a Chrome trace."""
     with open(trace_path) as f:
         data = json.load(f)
-    events = data["traceEvents"] if isinstance(data, dict) else data
+    return data["traceEvents"] if isinstance(data, dict) else data
+
+
+def device_events(events: List[dict]) -> List[DeviceEvent]:
+    """The device's kernels, copies and memsets among a trace's events, by start."""
     out = [DeviceEvent(str(e.get("name", "")), e["cat"], float(e["ts"]), float(e.get("dur", 0.0)))
            for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     out.sort(key=lambda e: e.ts_us)
     return out
+
+
+def load_device_events(trace_path: str) -> List[DeviceEvent]:
+    """`device_events` of the trace at `trace_path`."""
+    return device_events(read_events(trace_path))
+
+
+# Published dense peaks of one NVIDIA H100 SXM (NVIDIA's data sheet; at the
+# full 700 W power limit) in TFLOP/s, by a convolution's input type as the
+# trace names it. cuDNN runs f32 convolutions on the tensor cores as TF32
+# (PyTorch's default `torch.backends.cudnn.allow_tf32`).
+H100_PEAK_TFLOPS = {"c10::BFloat16": 989.0, "c10::Half": 989.0, "float": 495.0}
+
+
+class ConvCall(NamedTuple):
+    shape: str        # input and weight dims, stride, padding, groups
+    dtype: str        # the input's type as the trace names it
+    flops: float
+    device_us: float  # the kernels it launched
+
+
+def conv_calls(events: List[dict]) -> List[ConvCall]:
+    """Every `aten::convolution` host op of a trace recorded with shapes
+    (`utils/profiling.py::trace` records them), with its FLOPs from the
+    shapes and the device time of the kernels it launched: the launch calls
+    on its thread inside its span, matched to kernels by correlation id."""
+    kernel_us = defaultdict(float)
+    launches = defaultdict(list)  # (pid, tid) -> [(ts, correlation)]
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("ph") != "X" or corr is None:
+            continue
+        if e.get("cat") == "kernel":
+            kernel_us[corr] += float(e.get("dur", 0.0))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            launches[(e.get("pid"), e.get("tid"))].append((float(e["ts"]), corr))
+    for v in launches.values():
+        v.sort()
+    out = []
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("ph") != "X" or e.get("name") != "aten::convolution" or "Concrete Inputs" not in args:
+            continue
+        (n, c, h, w), (o, i, kh, kw) = args["Input Dims"][:2]
+        stride, pad, dil, transposed, _, groups = args["Concrete Inputs"][3:9]
+        if transposed == "True":
+            continue
+        (sh, sw), (ph, pw), (dh, dw) = (ast.literal_eval(v) for v in (stride, pad, dil))
+        ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+        wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+        t0, t1 = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+        run = launches.get((e.get("pid"), e.get("tid")), [])
+        lo = bisect.bisect_left(run, (t0, -1))
+        us = sum(kernel_us[corr] for ts, corr in run[lo:bisect.bisect_right(run, (t1, float("inf")))])
+        out.append(ConvCall(f"x=[{n}, {c}, {h}, {w}] w=[{o}, {i}, {kh}, {kw}] s={sh} p={ph} g={groups}",
+                            args["Input type"][0], 2.0 * n * o * ho * wo * i * kh * kw, us))
+    return out
+
+
+def print_conv_roofline(calls: List[ConvCall], div: float, unit: str) -> None:
+    by_shape = defaultdict(lambda: [0, 0.0, 0.0])
+    for cc in calls:
+        row = by_shape[(cc.shape, cc.dtype)]
+        row[0] += 1
+        row[1] += cc.flops
+        row[2] += cc.device_us
+    print("\n== convolution roofline (H100 dense peak: "
+          + ", ".join(f"{k} {v:g}" for k, v in H100_PEAK_TFLOPS.items()) + " TFLOP/s) ==")
+    if not calls:
+        print("  no aten::convolution with recorded shapes in this trace")
+        return
+    total_us = sum(cc.device_us for cc in calls)
+    if not total_us:
+        print(f"  {len(calls)} convolutions, no device kernels under them (a CPU trace)")
+        return
+    for (shape, dtype), (n, flops, us) in sorted(by_shape.items(), key=lambda kv: -kv[1][2])[:20]:
+        tflops = flops / (us * 1e-6) / 1e12 if us else 0.0
+        peak = H100_PEAK_TFLOPS.get(dtype)
+        share = f"{100.0 * tflops / peak:5.1f} %" if peak else "    -  "
+        print(f"  {us / div:10.1f} {unit} x{n:6d}  {tflops:7.1f} TF/s ({share})  {dtype:14s} {shape}")
+    agg = sum(cc.flops for cc in calls if cc.device_us) / (total_us * 1e-6) / 1e12
+    print(f"  ALL convs: {total_us / div:.1f} {unit} over {len(calls)} calls, {agg:.1f} TF/s")
 
 
 def category(ev: DeviceEvent) -> str:
@@ -126,10 +218,14 @@ def main(argv=None) -> int:
     ap.add_argument("-n", "--top", type=int, default=25)
     ap.add_argument("--frames", type=int, default=None,
                     help="frames the traced region processed: prints us/frame and device kernels per frame")
+    ap.add_argument("--convs", action="store_true",
+                    help="per-convolution roofline table: FLOPs from the recorded shapes, the device time of "
+                    "each convolution's kernels, achieved TFLOP/s and %% of the H100 dense peak per distinct shape")
     args = ap.parse_args(argv)
 
     path = find_trace(args.trace)
-    s = summarize(load_device_events(path), frames=args.frames, top=args.top)
+    events = read_events(path)
+    s = summarize(device_events(events), frames=args.frames, top=args.top)
     div = args.frames or 1
     unit = "us/frame" if args.frames else "us"
     print(path)
@@ -148,6 +244,8 @@ def main(argv=None) -> int:
     print(f"\n== top {args.top} device kernels by self time ==")
     for name, t, n in s["top"]:
         print(f"  {t / div:12.1f} {unit} x{n:7d}  {name[:110]}")
+    if args.convs:
+        print_conv_roofline(conv_calls(events), div, unit)
     print("\n== longest idle gaps (us, at us from the first device event) ==")
     for d, at in s["idle_gaps"]:
         print(f"  {d:12.1f} us  at {at:14.1f}")

@@ -86,7 +86,7 @@ def _static_outputs(hp: DeepSortParams, device) -> TrackerOutputs:
 class FrameRunner:
     """`frame_update` for one (hp, out_hw, device), over static buffers: a
     captured CUDA graph on a CUDA device, the same body run eagerly on the
-    CPU. The association route (`tracker.FORCE_CASCADE_KERNEL`) is fixed
+    CPU. The association route (`tracker.FORCE_PALLAS_CASCADE`) is fixed
     when the step is captured: build another runner for the other route.
     """
 

@@ -57,6 +57,8 @@ class TrackerParams:
     capacity: int = 64          # track slots K (== detection capacity)
     feat_dim: int = 512
     budget: int = 60            # NN_BUDGET gallery ring size (>= N_INIT)
+    pending_cap: int = 8        # JAX's field, kept for its call: it bounds
+                                # nothing here (no buffer is allocated for it)
     max_dist: float = 0.2       # MAX_DIST cosine matching threshold
     max_iou_distance: float = 0.6
     max_age: int = 30
@@ -202,10 +204,14 @@ def _associate_staged(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
     )
 
 
-# Counterpart of the JAX `tracker.py::FORCE_PALLAS_CASCADE`. None: auto
+# The JAX package's switch under its own name, so that a line written for
+# `vehicle_counting_tpu.tracking.tracker` works here unchanged. None: auto
 # (kernel K2 within the gates below); False: force the staged route (kernel
-# K4 per stage); True: K2, within the same gates.
-FORCE_CASCADE_KERNEL = None
+# K4 per stage); True: K2, within the same gates. Read when the step runs
+# eagerly, and when the frame graph is captured on the card
+# (`tracking/graph.py`): a flip needs a fresh capture, as in JAX it needs a
+# fresh jit trace.
+FORCE_PALLAS_CASCADE = None
 
 # The routing gates are the TPU kernel's: its packed argmin word held keys
 # below 2^22 (demoted det keys reach (max_age + 2) * K) and it held 256
@@ -220,7 +226,7 @@ def _use_cascade_kernel(hp: TrackerParams) -> bool:
     """The JAX `_cascade_kernel_mode` decision: K2 or the staged route."""
     if (hp.max_age + 2) * hp.capacity >= KEY_LIMIT or hp.capacity > CASCADE_MAX_K:
         return False
-    return FORCE_CASCADE_KERNEL is not False
+    return FORCE_PALLAS_CASCADE is not False
 
 
 def _associate(gated, iou_cost, lvl_of, tentative, track_id, iou_order,

@@ -16,8 +16,7 @@ import math
 
 import torch
 
-_MEAN = (0.485, 0.456, 0.406)
-_STD = (0.229, 0.224, 0.225)
+from vehicle_counting_tpu_torch.models.reid import IMAGENET_MEAN, IMAGENET_STD
 
 
 def _const(values, like: torch.Tensor) -> torch.Tensor:
@@ -27,12 +26,12 @@ def _const(values, like: torch.Tensor) -> torch.Tensor:
 def normalize(images: torch.Tensor) -> torch.Tensor:
     """uint8/float 0..255 RGB -> ImageNet-normalized float32."""
     x = images.to(torch.float32) / torch.full((), 255.0, device=images.device)
-    return (x - _const(_MEAN, x)) / _const(_STD, x)
+    return (x - _const(IMAGENET_MEAN, x)) / _const(IMAGENET_STD, x)
 
 
 def denormalize(images: torch.Tensor) -> torch.Tensor:
     """Inverse of normalize (augmentations/transforms.py:9-27 role)."""
-    x = images * _const(_STD, images) + _const(_MEAN, images)
+    x = images * _const(IMAGENET_STD, images) + _const(IMAGENET_MEAN, images)
     return torch.clamp(x * 255.0, 0, 255)
 
 

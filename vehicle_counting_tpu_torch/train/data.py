@@ -17,6 +17,8 @@ from typing import Iterator, List, Tuple
 import cv2
 import numpy as np
 
+from vehicle_counting_tpu_torch.models.reid import IMAGENET_MEAN, IMAGENET_STD
+
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
 
@@ -53,8 +55,8 @@ class ImageFolderDataset:
         if self._images is not None:
             return
         h, w = self.crop_hw
-        mean = np.array([0.485, 0.456, 0.406], np.float32)
-        std = np.array([0.229, 0.224, 0.225], np.float32)
+        mean = np.array(IMAGENET_MEAN, np.float32)
+        std = np.array(IMAGENET_STD, np.float32)
         imgs = np.empty((len(self.samples), h, w, 3), np.float32)
         labels = np.empty((len(self.samples),), np.int32)
         for i, (path, ci) in enumerate(self.samples):

@@ -45,7 +45,9 @@ def trace(log_dir: str = "vct_trace"):
     there is a card, its kernels and copies). On exit the Chrome trace is
     written to `log_dir/trace_<ns>.json`; the yielded dict gets its path
     under "path". View it in Perfetto or chrome://tracing, or summarise it
-    with `python -m vehicle_counting_tpu_torch.tools.profile_summary`.
+    with `python -m vehicle_counting_tpu_torch.tools.profile_summary`. Host
+    ops carry their input shapes, from which `profile_summary --convs`
+    counts each convolution's FLOPs.
 
     The trace holds one event per host op and per device kernel: a B=128
     batch of the counting step is ~67,000 device events and ~160 MB of
@@ -58,7 +60,7 @@ def trace(log_dir: str = "vct_trace"):
     acts = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA) if a in supported_activities()]
     os.makedirs(log_dir, exist_ok=True)
     info = {"path": None}
-    prof = profile(activities=acts)
+    prof = profile(activities=acts, record_shapes=True)
     prof.__enter__()
     try:
         yield info
