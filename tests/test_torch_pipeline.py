@@ -87,7 +87,7 @@ def _synthetic_video(tmp_path):
     return path, str(tmp_path / "zones")
 
 
-def test_run_video_end_to_end(tmp_path, monkeypatch):
+def test_run_video_end_to_end(tmp_path, monkeypatch, capsys):
     video_path, zone_dir = _synthetic_video(tmp_path)
     monkeypatch.setattr(step_mod, "pipeline_batch_step", fake_pipeline_batch_step)
     cfg = config_from_dict(default_config(), {
@@ -121,6 +121,12 @@ def test_run_video_end_to_end(tmp_path, monkeypatch):
     cap.release()
     for stage in ("decode", "letterbox", "upload", "dispatch", "readback", "count", "visualize"):
         assert pipe.last_timer.counts.get(stage, 0) > 0
+    # --debug also lists the spans recorded inside the stages: the tracker's
+    # layer (this step is a stand-in) and the host feed's
+    out = capsys.readouterr().out
+    listed = out.split("spans (total, mean, count, self):\n", 1)[1].splitlines()
+    names = {ln.split(":")[0] for ln in listed if " total, " in ln}
+    assert {"dispatch", "track", "track.inputs", "track.scan", "feed.letterbox", "feed.upload"} <= names
 
 
 def test_cli_mapping_parse():

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from vehicle_counting_tpu_torch.ops import true_div
+from vehicle_counting_tpu_torch.utils.profiling import spanned
 
 PAD_VALUE = 114.0  # ultralytics letterbox fill gray
 
@@ -164,12 +165,14 @@ def _map_frames(fn, b: int) -> None:
         list(pool.map(fn, range(b)))
 
 
+@spanned("feed.letterbox")
 def host_letterbox_yuv420(frames: np.ndarray, dst_hw: Tuple[int, int],
                           content_only: bool = False) -> np.ndarray:
     """Letterbox + RGB->I420 on host: [B, dh*3/2, dw] uint8.
 
     content_only=True ships only the content rows ([B, ch*3/2, dw]); the
-    device re-inserts the gray padding with `yuv420_content_to_full`.
+    device re-inserts the gray padding with `yuv420_content_to_full`. Each
+    call is a `feed.letterbox` span.
     """
     import cv2
 

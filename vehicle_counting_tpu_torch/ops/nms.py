@@ -4,7 +4,7 @@ Port of `vehicle_counting_tpu/ops/nms.py`. Greedy keep is computed as the
 fixpoint of k[i] = valid[i] & ~any_{j<i}(k[j] & overlap[j, i] > thr) over
 priority-sorted candidates, batched over any leading dims. The loop stops
 when no image changes, which costs one host sync per iteration (a few per
-batch).
+batch), each a `sync.nms` span.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Dict
 import torch
 
 from vehicle_counting_tpu_torch.ops.boxes import iou_matrix, sort_overlap_matrix
+from vehicle_counting_tpu_torch.utils.profiling import span
 
 # class-offset trick for class-aware NMS on one shared matrix
 MAX_WH = 7680.0
@@ -37,7 +38,9 @@ def greedy_suppress(overlap: torch.Tensor, valid: torch.Tensor, threshold) -> to
     keep = valid
     while True:
         new = valid & ~torch.any(pred & keep[..., :, None], dim=-2)
-        if torch.equal(new, keep):
+        with span("sync.nms"):
+            same = torch.equal(new, keep)
+        if same:
             return keep
         keep = new
 

@@ -364,6 +364,7 @@ class CountingPipeline:
         reader.release()
         if self.debug:
             print(f"[debug] {cam_name} per-stage timing:\n{timer.summary()}")
+            print(f"[debug] {cam_name} spans (total, mean, count, self):\n{timer.spans()}")
         return {"csv": csv_path, "counts": counts, "fps": fps, "frames": num_frames}
 
     def run_video_detect_only(self, video_path: str) -> Dict:

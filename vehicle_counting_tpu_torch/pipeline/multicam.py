@@ -235,6 +235,7 @@ class MultiCamCountingPipeline:
         fps = float(n_frames.sum()) / elapsed if elapsed > 0 else 0.0
         if base.debug:
             print(f"[debug] group {cams} per-stage timing:\n{timer.summary()}")
+            print(f"[debug] group {cams} spans (total, mean, count, self):\n{timer.spans()}")
 
         import pandas as pd
 

@@ -48,6 +48,7 @@ from vehicle_counting_tpu_torch.tracking.deepsort import (
 from vehicle_counting_tpu_torch.tracking import tracker as tracker_mod
 from vehicle_counting_tpu_torch.tracking.graph import FrameRunner
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerOutputs
+from vehicle_counting_tpu_torch.utils.profiling import span, step_span
 
 # The frame scan's launch path, in the manner of
 # `tracker.FORCE_PALLAS_CASCADE`. None: CUDA tensors replay the captured
@@ -113,9 +114,13 @@ def _net_input(rgb_u8, dtype):
     return true_div(rgb_u8.to(torch.float32), 255.0).to(dtype)
 
 
-def _detect(yolo_params, imgs, ycfg: YoloConfig, src_hw, image_size, conf_thres, iou_thres, max_det):
-    """YOLOv5 on NCHW images -> the fused tail -> boxes in source pixels."""
-    heads = [h.permute(0, 2, 3, 1) for h in yolov5_forward_nchw(yolo_params, imgs)]
+def _heads(yolo_params, imgs):
+    """YOLOv5 on NCHW images -> its three NHWC heads."""
+    return [h.permute(0, 2, 3, 1) for h in yolov5_forward_nchw(yolo_params, imgs)]
+
+
+def _tail(heads, ycfg: YoloConfig, src_hw, image_size, conf_thres, iou_thres, max_det):
+    """The heads -> the fused decode/NMS tail -> boxes in source pixels."""
     det = fused_detect_tail(heads, ycfg, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det)
     det["boxes"] = restore_boxes(det["boxes"], src_hw, image_size)
     return det
@@ -134,8 +139,8 @@ def detect_only_step(yolo_params, yuv, *, ycfg: YoloConfig, image_size: Tuple[in
     rows = (content_rows(src_hw, image_size)[1] if content_only else image_size[0]) * 3 // 2
     if yuv.shape[1] != rows:
         raise ValueError(f"content_only={content_only} takes an I420 upload of {rows} rows, got {yuv.shape[1]}")
-    imgs = _net_input(_i420_pixels(yuv, src_hw, image_size), dtype)
-    out = _detect(yolo_params, imgs, ycfg, src_hw, image_size, conf_thres, iou_thres, max_det)
+    heads = _heads(yolo_params, _net_input(_i420_pixels(yuv, src_hw, image_size), dtype))
+    out = _tail(heads, ycfg, src_hw, image_size, conf_thres, iou_thres, max_det)
     out["boxes"] = out["boxes"] * out["valid"][..., None]
     return out
 
@@ -147,36 +152,42 @@ def detect_front(yolo_params, frames, frame_valid, class_lut, *, ycfg: YoloConfi
     their tracked classes. Returns (det, crop), `crop` the embed's source
     (`embed_front`): the planar RGB of the I420 upload, or the uploaded
     frames themselves (the letterbox, through the gain/pad transform, or
-    the raw frames at source resolution)."""
-    planar, crop_gain, crop_pad = True, 1.0, (0.0, 0.0)
-    if frames_format == "raw_rgb":
-        imgs = letterbox(frames, image_size).to(dtype).permute(0, 3, 1, 2).contiguous()
-        crop_source, planar = frames, False
-    else:
-        if frames_format == "letterboxed_yuv420":
-            crop_source = _i420_pixels(frames, src_hw, image_size)  # [B, 3, H, W] u8
-            imgs = _net_input(crop_source, dtype)
-        elif frames_format == "letterboxed_rgb":
-            crop_source, planar = frames, False
-            imgs = _net_input(frames, dtype).permute(0, 3, 1, 2).contiguous()
-        else:
-            raise ValueError(f"unknown frames_format: {frames_format!r}")
-        gain, pad_x, pad_y, _, _ = letterbox_params(src_hw, image_size)
-        crop_gain, crop_pad = float(gain), (float(pad_x), float(pad_y))
-    det = _detect(yolo_params, imgs, ycfg, src_hw, image_size, conf_thres, iou_thres, max_det)
-
-    mapped = class_lut[torch.clamp(det["classes"], 0, class_lut.shape[0] - 1).long()]
-    det["valid"] = det["valid"] & (mapped >= 0) & frame_valid[:, None]
-    det["classes"] = torch.where(det["valid"], mapped, -1).to(torch.int32)
+    the raw frames at source resolution). Spans: `detect`, inside it
+    `detect.net` (pixels and the network) and `detect.tail`."""
+    with span("detect"):
+        planar, crop_gain, crop_pad = True, 1.0, (0.0, 0.0)
+        with span("detect.net"):
+            if frames_format == "raw_rgb":
+                imgs = letterbox(frames, image_size).to(dtype).permute(0, 3, 1, 2).contiguous()
+                crop_source, planar = frames, False
+            else:
+                if frames_format == "letterboxed_yuv420":
+                    crop_source = _i420_pixels(frames, src_hw, image_size)  # [B, 3, H, W] u8
+                    imgs = _net_input(crop_source, dtype)
+                elif frames_format == "letterboxed_rgb":
+                    crop_source, planar = frames, False
+                    imgs = _net_input(frames, dtype).permute(0, 3, 1, 2).contiguous()
+                else:
+                    raise ValueError(f"unknown frames_format: {frames_format!r}")
+                gain, pad_x, pad_y, _, _ = letterbox_params(src_hw, image_size)
+                crop_gain, crop_pad = float(gain), (float(pad_x), float(pad_y))
+            heads = _heads(yolo_params, imgs)
+        with span("detect.tail"):
+            det = _tail(heads, ycfg, src_hw, image_size, conf_thres, iou_thres, max_det)
+            mapped = class_lut[torch.clamp(det["classes"], 0, class_lut.shape[0] - 1).long()]
+            det["valid"] = det["valid"] & (mapped >= 0) & frame_valid[:, None]
+            det["classes"] = torch.where(det["valid"], mapped, -1).to(torch.int32)
     return det, dict(source=crop_source, crop_gain=crop_gain, crop_pad=crop_pad, planar=planar)
 
 
 def embed_front(reid_params, reid_stats, det, crop, *, hp: DeepSortParams, dtype=torch.bfloat16):
     """The front's second half: the ReID features [B, max_det, F] of
-    `detect_front`'s valid detections (one host read of their count)."""
-    return embed_detections_batch(crop["source"], det["boxes"], det["valid"], reid_params, reid_stats, hp,
-                                  crop_gain=crop["crop_gain"], crop_pad=crop["crop_pad"], dtype=dtype,
-                                  planar=crop["planar"])
+    `detect_front`'s valid detections (one host read of their count).
+    Span: `embed`."""
+    with span("embed"):
+        return embed_detections_batch(crop["source"], det["boxes"], det["valid"], reid_params, reid_stats, hp,
+                                      crop_gain=crop["crop_gain"], crop_pad=crop["crop_pad"], dtype=dtype,
+                                      planar=crop["planar"])
 
 
 def detect_embed_core(yolo_params, reid_params, reid_stats, frames, frame_valid, class_lut, *,
@@ -202,9 +213,11 @@ def tracker_scan(states, det, feats, *, hp: DeepSortParams, src_hw: Tuple[int, i
     card (see `USE_FRAME_GRAPH`) the returned state is the frame runner's
     own static state: `states` is copied in unless it is the state the
     runner returned last, and is itself left untouched; clone the returned
-    state to keep a snapshot, since the next scan moves those buffers on."""
-    inp = frame_inputs(feats, det["boxes"], det["scores"], det["classes"], det["valid"], hp)
-    return scan_frame_inputs(states, inp, hp=hp, src_hw=src_hw)
+    state to keep a snapshot, since the next scan moves those buffers on.
+    Span: `track`."""
+    with span("track"):
+        inp = frame_inputs(feats, det["boxes"], det["scores"], det["classes"], det["valid"], hp)
+        return scan_frame_inputs(states, inp, hp=hp, src_hw=src_hw)
 
 
 def scan_frame_inputs(states, inp: FrameInputs, *, hp: DeepSortParams, src_hw: Tuple[int, int], slot: int = 0):
@@ -212,15 +225,17 @@ def scan_frame_inputs(states, inp: FrameInputs, *, hp: DeepSortParams, src_hw: T
     leaves [B, C, K, ...]), with the same return and the same ownership
     rule for the state. `hp.num_classes` must be the inputs' class count:
     the multi-camera step hands in N_cam x C classes. On the card the scan
-    replays the frame runner of `slot` (see `frame_runner`)."""
+    replays the frame runner of `slot` (see `frame_runner`). Span:
+    `track.scan`."""
     device = inp.valid.device
-    if use_frame_graph(device):
-        return frame_runner(hp, src_hw, device, slot).run(states, inp)
-    outs = []
-    for i in range(inp.valid.shape[0]):
-        states, out = frame_update(states, FrameInputs(*(x[i] for x in inp)), hp, src_hw)
-        outs.append(out)
-    return states, TrackerOutputs(*(torch.stack(leaf) for leaf in zip(*outs)))
+    with span("track.scan"):
+        if use_frame_graph(device):
+            return frame_runner(hp, src_hw, device, slot).run(states, inp)
+        outs = []
+        for i in range(inp.valid.shape[0]):
+            states, out = frame_update(states, FrameInputs(*(x[i] for x in inp)), hp, src_hw)
+            outs.append(out)
+        return states, TrackerOutputs(*(torch.stack(leaf) for leaf in zip(*outs)))
 
 
 def pipeline_batch_step(yolo_params, reid_params, reid_stats, states, frames, frame_valid,
@@ -229,11 +244,13 @@ def pipeline_batch_step(yolo_params, reid_params, reid_stats, states, frames, fr
                         conf_thres: float = 0.25, iou_thres: float = 0.45, max_det: int = 300,
                         dtype=torch.bfloat16, frames_format: str = "raw_rgb"):
     """Returns (new_states, det dict [B, max_det], TrackerOutputs [B, C, K]).
-    The tracker gallery is updated in place."""
-    det, feats = detect_embed_core(
-        yolo_params, reid_params, reid_stats, frames, frame_valid, class_lut,
-        ycfg=ycfg, hp=hp, image_size=image_size, src_hw=src_hw, conf_thres=conf_thres,
-        iou_thres=iou_thres, max_det=max_det, dtype=dtype, frames_format=frames_format,
-    )
-    new_states, track_outs = tracker_scan(states, det, feats, hp=hp, src_hw=src_hw)
+    The tracker gallery is updated in place. Each call is one batch record
+    of the span recorder (`utils/profiling.py::step_span`)."""
+    with step_span(frames.shape[0]):
+        det, feats = detect_embed_core(
+            yolo_params, reid_params, reid_stats, frames, frame_valid, class_lut,
+            ycfg=ycfg, hp=hp, image_size=image_size, src_hw=src_hw, conf_thres=conf_thres,
+            iou_thres=iou_thres, max_det=max_det, dtype=dtype, frames_format=frames_format,
+        )
+        new_states, track_outs = tracker_scan(states, det, feats, hp=hp, src_hw=src_hw)
     return new_states, det, track_outs

@@ -41,6 +41,7 @@ from vehicle_counting_tpu_torch.tracking.tracker import (
     tracker_precompute,
     tracker_step_core,
 )
+from vehicle_counting_tpu_torch.utils.profiling import span, spanned
 
 
 class DeepSortParams(NamedTuple):
@@ -104,22 +105,25 @@ def _embed_compacted_chunks(gather_chunk, embed_chunk, valid_flat, chunk: int):
     """Embed every valid detection of a flat axis, `chunk` crops per CNN
     forward: valid detections compact to the front (stable order) and the
     last chunk is padded with invalid entries (zero crops). Returns [n, F]
-    with zeros at invalid detections. One host sync reads the count."""
+    with zeros at invalid detections. One host sync reads the count (span
+    `sync.embed_count`); each chunk is an `embed.chunk` span."""
     n = valid_flat.shape[0]
     dev = valid_flat.device
     feats = torch.zeros((n, EMBED_DIM), dtype=torch.float32, device=dev)
-    order = torch.nonzero(valid_flat).flatten()
+    with span("sync.embed_count"):
+        order = torch.nonzero(valid_flat).flatten()
     nv = order.shape[0]
     c = min(chunk, n)
     for start in range(0, nv, c):
-        sel = order[start : start + c]
-        pad = c - sel.shape[0]
-        v = torch.ones(c, dtype=torch.bool, device=dev)
-        if pad:
-            sel = torch.cat([sel, torch.zeros(pad, dtype=sel.dtype, device=dev)])
-            v[c - pad :] = False
-        f = embed_chunk(gather_chunk(sel, v))
-        feats[sel[: c - pad]] = f[: c - pad]
+        with span("embed.chunk"):
+            sel = order[start : start + c]
+            pad = c - sel.shape[0]
+            v = torch.ones(c, dtype=torch.bool, device=dev)
+            if pad:
+                sel = torch.cat([sel, torch.zeros(pad, dtype=sel.dtype, device=dev)])
+                v[c - pad :] = False
+            f = embed_chunk(gather_chunk(sel, v))
+            feats[sel[: c - pad]] = f[: c - pad]
     return feats
 
 
@@ -174,9 +178,10 @@ class FrameInputs(NamedTuple):
     order: torch.Tensor     # [..., C, K] rank in the reference's detection list
 
 
+@spanned("track.inputs")
 def frame_inputs(feats, boxes, scores, classes, valid, hp: DeepSortParams) -> FrameInputs:
     """The frame-independent part of `deepsort_frame_core`, for [..., N]
-    detections (any leading frame axes)."""
+    detections (any leading frame axes). Span: `track.inputs`."""
     k = hp.tracker.capacity
     cb, cs, cidx, cv = _slot_by_class(boxes, scores, classes, valid, hp.num_classes, k)
     lead = feats.shape[:-2]

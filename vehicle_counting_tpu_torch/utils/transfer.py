@@ -25,6 +25,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from vehicle_counting_tpu_torch.utils.profiling import spanned
+
 _SMALL_BYTES = 1 << 21
 _LOCK = threading.Lock()
 _COPY_STREAMS: Dict[torch.device, List["torch.cuda.Stream"]] = {}
@@ -63,6 +65,7 @@ def _staging(dev, x: np.ndarray, pin: bool = True):
     return slot["bufs"][turn], slot["events"][turn]
 
 
+@spanned("feed.upload")
 def parallel_device_put(x: np.ndarray, streams: Optional[int] = None, device=None,
                         timing: Optional[list] = None) -> torch.Tensor:
     """`x` as a tensor on `device` (default: the current CUDA device).
@@ -78,7 +81,8 @@ def parallel_device_put(x: np.ndarray, streams: Optional[int] = None, device=Non
     memory.
 
     `timing`, when a list, gets one `(start, [done, ...], nbytes)` of timed
-    CUDA events per upload: `upload_gbps` turns it into a rate.
+    CUDA events per upload: `upload_gbps` turns it into a rate. Each call
+    is a `feed.upload` span.
     """
     x = np.asarray(x)
     dev = torch.device("cuda") if device is None else torch.device(device)
