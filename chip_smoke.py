@@ -50,6 +50,14 @@ Phases, each fatal on failure:
             its f32 kernel timed in turns with this one; each variant's
             ptxas registers and shared memory;
   embed     the ReID embed at the main path's shapes with K5 off and on;
+  K8        the ReID trunk's BN epilogue vs its plain version (the eager
+            chain it replaces), bitwise, every option at the stem's and
+            each stage's shape, f32 / bf16 input, NCHW / channels-last, N =
+            1, 37, 128; kernel and plain chain in turns, device time (L2
+            flushed) against the byte bound, above 105 % a failure; the
+            wrapper's host cost; the embedding bitwise
+            against the plain chain's with 20 / 16 launches per forward (K5
+            off / on); device kernels per chunk of the step's embed;
   K6        layer-1 conv (3x3 s2, 32->64, SiLU) vs its plain version at
             [128, 192, 320, 32] bf16, [3, 64, 128, 32] bf16 (edge tiles) and
             a small f32 shape, with the library call (F.conv2d channels-last
@@ -66,7 +74,8 @@ Phases, each fatal on failure:
             a calibrated min_conf and a 4-class mapping; asserts the CSV and
             MP4 and that both of its kernels (K1, K2) were launched, K2 once
             per frame (the tracker's frame step is replayed from a CUDA
-            graph); then the same run with the graph off, off and on: equal
+            graph), K8 20 times per K1 launch (each chunk's ReID forward);
+            then the same run with the graph off, off and on: equal
             CSV rows, frames/s of each;
   switched  the CLI on the first 128 frames with FORCE_PALLAS_REID_BLOCK=1
             and the staged association forced: CSV and MP4 written, K1, K4
@@ -182,7 +191,7 @@ SRC_HW = (720, 1280)
 N_FRAMES = 256
 N_SWITCHED = 128
 VARIANT = "yolov5s"
-KERNELS = ("crops", "cascade", "assignment", "reid_block", "conv_s2", "noop")
+KERNELS = ("crops", "cascade", "assignment", "reid_block", "conv_s2", "noop", "reid_epilogue")
 MC_FRAMES = (128, 128, 128, 96)  # the multi-camera CLI's videos
 MC_K2_CAMS = 8  # cameras of K2's camera-axis check: C = 4 x 8 blocks
 FP_B = 8  # frames per batch of the frame-parallel checks (f32)
@@ -666,7 +675,8 @@ def check_k5(dev, parent=None):
     tests/test_torch_reid_block.py. bf16 at the embed's launch (N=128, a
     128-crop chunk) and at a 128-frame batch's crops (N=3840), each beside
     the plain version and, for information, cuDNN's bf16 block
-    (models/reid.py::_basic_block, what the embed runs with K5 off); the
+    (testing.reid_block_eager: cuDNN and the eager op chain, the embed's
+    block with K5 off before K8); the
     cached packed weights against a fresh pack, bitwise; then the f32 mode
     (`check_k5_f32`), with the kernel of the checkout at `parent` beside it
     when one is given."""
@@ -674,9 +684,9 @@ def check_k5(dev, parent=None):
 
     from vehicle_counting_tpu_torch import _build
     from vehicle_counting_tpu_torch.models.convert import reid_block64_from_jax, reid_params_from_jax
-    from vehicle_counting_tpu_torch.models.reid import _basic_block, cast_conv_weights
+    from vehicle_counting_tpu_torch.models.reid import cast_conv_weights
     from vehicle_counting_tpu_torch.ops import reid_block
-    from vehicle_counting_tpu_torch.testing import reid_block_params
+    from vehicle_counting_tpu_torch.testing import reid_block_eager, reid_block_params
 
     fn, ptxas = None, {}
     for ln in _build.BUILD_LOGS.get("reid_block", "").splitlines():
@@ -708,7 +718,7 @@ def check_k5(dev, parent=None):
         t_k = cuda_ms(lambda: reid_block.reid_block64(x, *wts), reps)
         t_k2 = cuda_ms(lambda: reid_block.reid_block64(x, *wts), reps)
         t_plain2 = cuda_ms(lambda: reid_block.reid_block64_plain(x, *wts), reps)
-        t_cudnn = cuda_ms(lambda: _basic_block(pb, sf, xf, 1, torch.bfloat16), reps)
+        t_cudnn = cuda_ms(lambda: reid_block_eager(pb, sf, xf, 1, torch.bfloat16), reps)
         dev_k = device_events(lambda: reid_block.reid_block64(x, *wts))
         dev_k5 = sum(ms for name, ms in dev_k if "reid_block_bf16" in name)
         dev_plain = sum(ms for _, ms in device_events(lambda: reid_block.reid_block64_plain(x, *wts)))
@@ -802,13 +812,13 @@ def check_k5_f32(dev, x32, wts, pf, sf, parent=None, reps=10):
     switched on) against its plain version at atol 1e-4: N = 1, 133
     (crops 0-3 == an N = 4 launch, bitwise) and 3840. At N = 3840 the
     wrapper's and the plain version's times in turns, the kernel's device
-    time against its bound, the library call (cuDNN's f32 block,
-    models/reid.py::_basic_block with TF32 off) and, with `parent` (what
+    time against its bound, the library call (cuDNN's f32 block and the
+    eager op chain, testing.reid_block_eager, TF32 off) and, with `parent` (what
     `parent_k5` returns), the parent's f32 kernel in turns with this one."""
     import torch
 
-    from vehicle_counting_tpu_torch.models.reid import _basic_block
     from vehicle_counting_tpu_torch.ops import reid_block
+    from vehicle_counting_tpu_torch.testing import reid_block_eager
 
     tol = dict(rtol=0, atol=1e-4)
     for n in (1, 133):
@@ -827,9 +837,9 @@ def check_k5_f32(dev, x32, wts, pf, sf, parent=None, reps=10):
     t_k = cuda_ms(lambda: reid_block.reid_block64(*args), reps)
     t_k2 = cuda_ms(lambda: reid_block.reid_block64(*args), reps)
     t_plain2 = cuda_ms(lambda: reid_block.reid_block64_plain(*args), reps)
-    t_lib = cuda_ms(lambda: _basic_block(pf, sf, x32, 1, torch.float32), reps)
-    lib_err = float((_basic_block(pf, sf, x32, 1, torch.float32) - want).abs().max())
-    t_lib2 = cuda_ms(lambda: _basic_block(pf, sf, x32, 1, torch.float32), reps)
+    t_lib = cuda_ms(lambda: reid_block_eager(pf, sf, x32, 1, torch.float32), reps)
+    lib_err = float((reid_block_eager(pf, sf, x32, 1, torch.float32) - want).abs().max())
+    t_lib2 = cuda_ms(lambda: reid_block_eager(pf, sf, x32, 1, torch.float32), reps)
 
     def k5_device(launch):
         ev = device_events(launch)
@@ -839,7 +849,7 @@ def check_k5_f32(dev, x32, wts, pf, sf, parent=None, reps=10):
         return k[0], sum(ms for _, ms in ev) - k[0], len(ev) - 1
 
     dev_k, dev_other, n_other = k5_device(lambda: reid_block.reid_block64(*args))
-    dev_lib = sum(ms for _, ms in device_events(lambda: _basic_block(pf, sf, x32, 1, torch.float32)))
+    dev_lib = sum(ms for _, ms in device_events(lambda: reid_block_eager(pf, sf, x32, 1, torch.float32)))
     # x and out once, weights and BN once; two 3x3 64->64 convs on 25x25 per crop, f32 FMA on the CUDA cores
     bd = bound(2 * nbytes(x32) + nbytes(*wts), 2 * 2 * 625 * 64 * 64 * 9 * x32.shape[0], F32_FLOPS)
     print(f"K5 float32 N=3840: max |diff| {err:.3e} (atol 1e-4); wrapper {t_k:.4f}/{t_k2:.4f} ms, plain "
@@ -912,6 +922,200 @@ def embed_ab(dev, n_frames=128, per_frame=30):
     finally:
         reid.FORCE_PALLAS_REID_BLOCK = old
     return {"off": min(t[False]), "on": min(t[True])}
+
+
+@contextlib.contextmanager
+def _reid_trunk_as(plain_epilogue=False, eager_conv_weights=False):
+    """The ReID trunk with the plain chain in K8's place and / or each
+    convolution taking its OIHW weight as it is (F.conv2d relayouts it per
+    call): both set, the parent's trunk, op for op."""
+    import torch.nn.functional as F
+
+    from vehicle_counting_tpu_torch.models import reid
+    from vehicle_counting_tpu_torch.ops import reid_epilogue as ep
+
+    kept = reid.reid_epilogue, reid._conv
+    if plain_epilogue:
+        reid.reid_epilogue = ep.reid_epilogue_plain
+    if eager_conv_weights:
+        reid._conv = lambda x, w, stride, padding, dtype: F.conv2d(x.to(dtype), w.to(dtype), stride=stride,
+                                                                   padding=padding)
+    try:
+        yield
+    finally:
+        reid.reid_epilogue, reid._conv = kept
+
+
+def check_reid_epilogue(dev):
+    """K8, the ReID trunk's BN epilogue: the kernel against its plain
+    version (the eager chain it replaces), bitwise, at the stem's shape and
+    each stage's for every option (testing.EPILOGUE_CASES), f32 and bf16
+    input, NCHW and channels-last, N = 1, 37 and 128; its time against the
+    plain chain's in turns, device time (each call after a read that
+    evicts L2) against the byte bound at the stem and at each stage's
+    shortcut, above 105 % a failure; the wrapper's host cost; the embedding
+    with K8 bitwise the embedding with the plain chain put in its place and
+    the parent's trunk's (plain chain, OIHW weights; N = 1, 37, 128; bf16
+    and f32; K5 off and on) with 20 / 16 launches per forward; and the
+    device kernels per 128-crop chunk of the step's embed
+    (embed_detections_batch, 30 chunks) against the parent's trunk's."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models import reid
+    from vehicle_counting_tpu_torch.ops import reid_epilogue as ep
+    from vehicle_counting_tpu_torch.testing import EPILOGUE_CASES, crop_boxes, fake_reid_state_dict, reid_epilogue_operands
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, embed_detections_batch
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams
+
+    torch.backends.cudnn.allow_tf32 = False
+    layouts = {"nchw": torch.contiguous_format, "channels_last": torch.channels_last}
+    shapes = {"stem": (128, 64, 50, 50), "stage1": (128, 64, 25, 25), "stage2": (128, 128, 13, 13),
+              "stage3": (128, 256, 7, 7), "stage4": (128, 512, 4, 4)}
+
+    def bits(t):
+        return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+    def call(fn, ops, x, res, case, lo_dtype):
+        o = EPILOGUE_CASES[case]
+        return fn(x, ops["mean"], ops["inv"], ops["scale"], ops["bias"], pre_bias=ops["pre_bias"] if o["pre_bias"] else None,
+                  residual=res if o["residual"] else None, relu=o["relu"], f32=o["f32"], lo=lo_dtype if o["lo"] else None)
+
+    rng = np.random.default_rng(SEED + 20)
+    operands, checked = {}, 0
+    for where, shape in shapes.items():
+        ops = {k: torch.from_numpy(v).to(dev) for k, v in reid_epilogue_operands(rng, shape).items()}
+        ops["inv"] = ep.bn_inv(ops["var"], reid.BN_EPS)
+        operands[where] = ops
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout, fmt in layouts.items():
+                x_all = ops["x"].to(dtype).contiguous(memory_format=fmt)
+                r_all = ops["residual"].contiguous(memory_format=fmt)
+                for n in (1, 37, 128):
+                    x, r = x_all[:n], r_all[:n]
+                    for case in EPILOGUE_CASES:
+                        got = call(ep.reid_epilogue, ops, x, r, case, torch.bfloat16)
+                        want = call(ep.reid_epilogue_plain, ops, x, r, case, torch.bfloat16)
+                        for g, w in zip(got, want):
+                            if (g is None) != (w is None) or (g is not None and (
+                                    g.stride() != w.stride() or not torch.equal(bits(g), bits(w)))):
+                                raise AssertionError(f"K8 {case} {where} {dtype} {layout} N={n}: differs from the plain "
+                                                     f"chain (or its memory format does)")
+                        checked += 1
+    print(f"K8 bitwise == the plain chain in {checked} calls: {len(EPILOGUE_CASES)} cases x stem and four stages x "
+          f"f32 / bf16 input x NCHW / channels-last x N = 1, 37, 128 (zeros of both signs, ties, infinities, a NaN)")
+
+    timings, flushed_calls = {}, 5
+    l2_flush = torch.zeros(64 * 2**20, device=dev)  # 256 MB, five times the H100's L2
+    for where, case in (("stem", "stem"), ("stage1", "conv2"), ("stage2", "conv2"), ("stage3", "conv2"),
+                        ("stage4", "conv2")):
+        ops = operands[where]
+        x = ops["x"].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)  # the cell's: bf16, channels-last
+        r = ops["residual"].contiguous(memory_format=torch.channels_last)
+        kern = lambda: call(ep.reid_epilogue, ops, x, r, case, torch.bfloat16)  # noqa: E731
+        plain = lambda: call(ep.reid_epilogue_plain, ops, x, r, case, torch.bfloat16)  # noqa: E731
+        t = {"plain": [], "kernel": []}
+        for who in ("plain", "kernel", "kernel", "plain"):
+            t[who].append(cuda_ms(kern if who == "kernel" else plain, 20))
+        ev = device_events(kern)
+        if len(ev) != 1 or "reid_epilogue" not in ev[0][0]:
+            raise AssertionError(f"K8: one call must run exactly one device kernel, the trace shows {ev}")
+        ev_warm = ev[0][1]
+        # the bound counts every byte from HBM, but the stem's 41 MB input fits the 50 MB L2 that the
+        # previous call left warm: each traced call comes after a read of 256 MB, which evicts it
+        ev = device_events(lambda: [(l2_flush.sum(), kern()) for _ in range(flushed_calls)])
+        k8 = sorted(ms for name, ms in ev if "reid_epilogue" in name)
+        if len(k8) != flushed_calls:
+            raise AssertionError(f"K8: {len(k8)} kernels in {flushed_calls} calls, the trace shows {ev}")
+        k8_ms = k8[len(k8) // 2]
+        plain_ev = device_events(plain)
+        o = EPILOGUE_CASES[case]
+        out_bytes = x.numel() * (4 * o["f32"] + 2 * o["lo"])
+        vec_bytes = nbytes(ops["mean"]) * (4 + o["pre_bias"])
+        bd = bound(nbytes(x) + (nbytes(r) if o["residual"] else 0) + out_bytes + vec_bytes, 0, BF16_FLOPS)
+        timings[where] = {"case": case, "shape": list(x.shape), "ms": min(t["kernel"]), "plain_ms": min(t["plain"]),
+                          "device_ms": k8_ms, "device_ms_warm_l2": ev_warm,
+                          "plain_device_ms": sum(ms for _, ms in plain_ev),
+                          "plain_device_kernels": len(plain_ev), **bd, "bound_share": bd["bound_ms"] / k8_ms}
+        print(f"K8 {case} {list(x.shape)} bf16 channels-last: kernel {t['kernel']} ms, plain chain {t['plain']} ms "
+              f"(CUDA events, turns); device, L2 flushed, median of {flushed_calls} {k8_ms:.4f} ms (all "
+              f"{[round(v, 4) for v in k8]}; warm L2 {ev_warm:.4f}) in 1 kernel against the plain chain's "
+              f"{timings[where]['plain_device_ms']:.4f} ms in {len(plain_ev)}; bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}, 3.35 TB/s): {100 * bd['bound_ms'] / k8_ms:.1f} % of it")
+        if bd["bound_ms"] / k8_ms > 1.05:
+            raise AssertionError(f"K8 {where}: {100 * bd['bound_ms'] / k8_ms:.1f} % of its byte bound; above 105 % the "
+                                 f"bytes are counted too high or the time misses part of the work")
+    ops = operands["stage4"]
+    x = ops["x"].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    kern = lambda: call(ep.reid_epilogue, ops, x, None, "conv1", torch.bfloat16)  # noqa: E731
+    bn_p, bn_s = {"scale": ops["scale"], "bias": ops["bias"]}, {"mean": ops["mean"], "var": ops["var"]}
+    trunk_call = lambda: reid._bn_epilogue(x, bn_p, bn_s, torch.bfloat16, f32=False, feeds_conv=True,  # noqa: E731
+                                           relu=True)
+    host_us = [1e3 * host_ms(kern, 2000) for _ in range(3)]
+    trunk_us = [1e3 * host_ms(trunk_call, 2000) for _ in range(3)]
+    print(f"K8 wrapper host cost, {list(x.shape)} conv1 (one bf16 output), 2000 calls in a row: {host_us} us a call; "
+          f"with the kept inv's lookup, as the trunk calls it: {trunk_us} us")
+
+    rp, rs = reid.reid_state_dict_to_pytree(fake_reid_state_dict(rng), dev)  # BN away from identity
+    rpb = reid.cast_conv_weights(rp, torch.bfloat16)
+    crops = torch.from_numpy(rng.standard_normal((128, 50, 50, 3)).astype(np.float32)).to(dev)
+    old = reid.FORCE_PALLAS_REID_BLOCK
+    per_forward = {}
+    try:
+        for k5 in (False, True):
+            reid.FORCE_PALLAS_REID_BLOCK = k5
+            for dtype, params in ((torch.bfloat16, rpb), (None, rp)):
+                for n in (1, 37, 128):
+                    ep.reid_epilogue.launches = 0
+                    got = reid.reid_embed(params, rs, crops[:n], dtype=dtype)
+                    launches = ep.reid_epilogue.launches
+                    with _reid_trunk_as(plain_epilogue=True):
+                        want = reid.reid_embed(params, rs, crops[:n], dtype=dtype)
+                    with _reid_trunk_as(plain_epilogue=True, eager_conv_weights=True):
+                        want_parent = reid.reid_embed(params, rs, crops[:n], dtype=dtype)
+                    if not (torch.equal(got, want) and torch.equal(got, want_parent)):
+                        raise AssertionError(f"K8: embedding (N={n}, {dtype}, K5 {k5}) differs from the plain chain's "
+                                             f"(or from the parent's trunk: plain chain, OIHW weights)")
+                    per_forward[f"k5_{'on' if k5 else 'off'}_{'bf16' if dtype else 'f32'}"] = launches
+                    want_launches = 16 if k5 and dtype is not None else 20
+                    if launches != want_launches:
+                        raise AssertionError(f"K8: {launches} launches per forward (K5 {k5}, {dtype}), want {want_launches}")
+    finally:
+        reid.FORCE_PALLAS_REID_BLOCK = old
+    print(f"K8 embedding bitwise == the plain chain's, N = 1, 37, 128, bf16 and f32, K5 off and on; launches per "
+          f"forward {per_forward}")
+
+    # the step's embed at the cell's load: 128 frames x 30 detections = 30 chunks of max_embed crops
+    b, nd, h, w = 128, 64, 384, 640
+    frames = torch.from_numpy(rng.integers(0, 256, (b, 3, h, w), dtype=np.uint8)).to(dev)
+    boxes = torch.from_numpy(crop_boxes(rng, b * nd, h, w).reshape(b, nd, 4)).to(dev)
+    valid = torch.zeros((b, nd), dtype=torch.bool, device=dev)
+    valid[:, :30] = True
+    hp = DeepSortParams(tracker=TrackerParams(), num_classes=4)  # the embed reads max_embed only
+    chunks = -(-int(valid.sum()) // hp.max_embed)
+
+    def embed():
+        with torch.no_grad():
+            return embed_detections_batch(frames, boxes, valid, rpb, rs, hp, dtype=torch.bfloat16)
+
+    counts, walls = {}, {"parent": [], "kernel": []}
+    for who in ("parent", "kernel", "kernel", "parent"):
+        with _reid_trunk_as(plain_epilogue=who == "parent", eager_conv_weights=who == "parent"):
+            walls[who].append(host_ms(embed, 5))
+    for who in ("parent", "kernel"):
+        with _reid_trunk_as(plain_epilogue=who == "parent", eager_conv_weights=who == "parent"):
+            ev = device_events(embed)
+        counts[who] = {"device_kernels": len(ev), "per_chunk": len(ev) / chunks,
+                       "device_ms": sum(ms for _, ms in ev), "k8_ms": sum(ms for n, ms in ev if "reid_epilogue" in n)}
+    if not counts["kernel"]["per_chunk"] <= 70:
+        raise AssertionError(f"K8: {counts['kernel']['per_chunk']:.1f} device kernels per embed chunk, want <= 70")
+    print(f"embed_detections_batch, {b} frames x 30 detections ({chunks} chunks of {hp.max_embed}), bf16: host ms a "
+          f"batch (synchronised) parent's trunk {walls['parent']}, K8 {walls['kernel']}; device kernels per chunk "
+          f"(torch.profiler) parent's trunk {counts['parent']['per_chunk']:.2f}, K8 {counts['kernel']['per_chunk']:.2f}; "
+          f"device ms a batch parent's {counts['parent']['device_ms']:.3f}, K8 {counts['kernel']['device_ms']:.3f} "
+          f"(of which K8 {counts['kernel']['k8_ms']:.3f})")
+    return {"bitwise_calls": checked, "timings": timings, "wrapper_host_us": host_us, "trunk_call_host_us": trunk_us,
+            "launches_per_forward": per_forward,
+            "embed_batch_ms": walls, "embed_device": counts, **timings["stem"], "library_ms": None}
 
 
 def device_events(fn):
@@ -1212,7 +1416,7 @@ def kernel_counters():
     """{kernel: [wrappers that launch it]} of the step's kernels. K2
     ("cascade", all classes in one launch) and its per-class entry K3
     ("cascade_k3", the scan mode's association) are counted apart."""
-    from vehicle_counting_tpu_torch.ops import assignment, cascade, crops, reid_block
+    from vehicle_counting_tpu_torch.ops import assignment, cascade, crops, reid_block, reid_epilogue
 
     return {
         "crops": [crops.gather_crops_batch],
@@ -1221,6 +1425,7 @@ def kernel_counters():
         "insert_rows": [assignment.insert_rows_batched],
         "match_stage": [assignment.match_stage_batched],
         "reid_block": [reid_block.reid_block64],
+        "reid_epilogue": [reid_epilogue.reid_epilogue],
     }
 
 
@@ -2713,9 +2918,9 @@ def run_serving(dev, tmp):
     """(d) `serving.cli export` of the production config (bf16, B=128, 720p
     I420, yolov5s, weights bundled; min_conf and the class map from
     `_serving_config`), then
-    `verify` in a fresh process: bit_exact, K1 and K2 loaded from the
+    `verify` in a fresh process: bit_exact, K1, K2 and K8 loaded from the
     artifact's own kernels/ (not build/kernels/) and launched by its
-    step, live and artifact ms per batch; `smoke` in a fresh process
+    step (K8 20 times per K1 launch: a ReID forward per chunk), live and artifact ms per batch; `smoke` in a fresh process
     (frames/s); then a detect-only artifact and its `smoke`."""
     from vehicle_counting_tpu_torch import _build
     from vehicle_counting_tpu_torch.serving import cli
@@ -2727,18 +2932,19 @@ def run_serving(dev, tmp):
     export_s = time.perf_counter() - t0
     with open(os.path.join(art, "manifest.json")) as f:
         manifest = json.load(f)
-    if sorted(manifest["kernels"]) != ["cascade", "crops"]:
-        raise AssertionError(f"serving: the artifact ships kernels {sorted(manifest['kernels'])}, want cascade, crops")
+    if sorted(manifest["kernels"]) != ["cascade", "crops", "reid_epilogue"]:
+        raise AssertionError(f"serving: the artifact ships kernels {sorted(manifest['kernels'])}, want cascade, crops, "
+                             f"reid_epilogue")
     verify = _serving_cli("verify", "--artifact", art, "--batches", str(SERVE_BATCHES))
     kdir = os.path.realpath(os.path.join(art, "kernels"))
     build_dir = os.path.dirname(_build.library_path("crops"))
     frames = 2 * SERVE_BATCHES * verify["batch"]  # two passes of the chain
     if not verify["bit_exact"]:
         raise AssertionError(f"serving verify: {verify['mismatched_arrays']} arrays differ from the live step")
-    for name in ("crops", "cascade"):
+    for name in ("crops", "cascade", "reid_epilogue"):
         if os.path.realpath(verify["kernels_from"][name]) != kdir or verify["kernels_from"][name] == build_dir:
             raise AssertionError(f"serving verify: {name} loaded from {verify['kernels_from'][name]}, not {kdir}")
-    if verify["launches"]["K1"] <= 0 or verify["launches"]["K2"] != frames:
+    if verify["launches"]["K1"] <= 0 or verify["launches"]["K2"] != frames or verify["launches"]["K8"] != 20 * verify["launches"]["K1"]:
         raise AssertionError(f"serving verify: the artifact's step launched {verify['launches']} (K2 {frames} wanted)")
     smoke = _serving_cli("smoke", "--artifact", art, "--batches", str(SERVE_BATCHES))
     cli.main(["export", "--out", art_det, "--config", cfg, "--mapping", mapping, "--device", str(dev), "--detect_only"])
@@ -3903,6 +4109,8 @@ def main() -> int:
     k5 = check_k5(dev, _flag_value("--k5-parent"))
     phase("embed A/B: ReID embed with K5 off and on", card)
     emb = embed_ab(dev)
+    phase("K8 ReID BN epilogue", card)
+    k8 = check_reid_epilogue(dev)
     phase("K6 layer-1 conv", card)
     k6 = check_k6(dev)
 
@@ -3925,12 +4133,18 @@ def main() -> int:
                 raise AssertionError(f"the main path never launched the {name} kernel")
         if launches["cascade"] != N_FRAMES:
             raise AssertionError(f"the main path replays one K2 launch per frame: {launches['cascade']} for {N_FRAMES} frames")
+        if launches["reid_epilogue"] != 20 * launches["crops"]:
+            raise AssertionError(f"the main path's embed: {launches['reid_epilogue']} K8 launches for {launches['crops']} "
+                                 f"chunks (K1 launches), want 20 per chunk's ReID forward")
         phase("pipeline A/B: the CLI with the frame graph off / off / on", card)
         cli_fps = run_cli_ab(dev, tmp, path, zones, conf, mapping, df, fps)
         phase("switched pipeline: fused ReID block + staged association", card)
         graph_mod.warmup_launches.clear()
         launches_sw, df_sw = run_switched(dev, tmp, path_sw, zones_sw, conf, mapping)
         warmup["match_stage"] = graph_mod.warmup_launches.get("match_stage_batched", 0)
+        if launches_sw["reid_epilogue"] != 16 * launches_sw["crops"]:
+            raise AssertionError(f"the switched path's embed: {launches_sw['reid_epilogue']} K8 launches for "
+                                 f"{launches_sw['crops']} chunks, want 16 per ReID forward with K5 on")
         n_default = df[df.frame_id < N_SWITCHED].track_id.nunique() if len(df) else 0
         n_switched = df_sw.track_id.nunique() if len(df_sw) else 0
         print(f"tracks in the zone over the first {N_SWITCHED} frames: switched run {n_switched}, "
@@ -4039,6 +4253,9 @@ def main() -> int:
         dict(name="reid_block64", route="cuda", source="vehicle_counting_tpu_torch/csrc/reid_block.cu",
              replaces="vehicle_counting_tpu/ops/pallas/reid_block.py:139", launches=launches_sw["reid_block"],
              path="switched", launches_extract_features_per_call=train_speed["k5_launches_per_call"], **k5),
+        dict(name="reid_epilogue", route="cuda", source="vehicle_counting_tpu_torch/csrc/reid_epilogue.cu",
+             replaces=None, launches=launches["reid_epilogue"], launches_switched=launches_sw["reid_epilogue"],
+             launches_serving_verify=serve["verify"]["launches"]["K8"], **k8),
         dict(name="conv1_s2_silu", route="cuda", source="vehicle_counting_tpu_torch/csrc/conv_s2.cu",
              replaces="vehicle_counting_tpu/ops/pallas/conv_s2.py:181", launches=launches_k6,
              path="layer-1 stand-alone", **k6["bfloat16"], edges=k6["bfloat16_edges"], f32=k6["float32"]),
@@ -4049,6 +4266,10 @@ def main() -> int:
         k["launch_floor_ms"] = floor_ms  # the bare ctypes launch of K7, this run
     print(f"pipeline frames/s: {fps:.2f} [{card}]")
     print(f"embed ms/frame, bf16: K5 off {emb['off']:.4f}, K5 on {emb['on']:.4f} [{card}]")
+    print(f"K8 BN epilogue: bound shares {json.dumps({k: v['bound_share'] for k, v in k8['timings'].items()})}, "
+          f"wrapper host us {json.dumps(k8['wrapper_host_us'])}, launches per forward "
+          f"{json.dumps(k8['launches_per_forward'])}, the step's embed per chunk {json.dumps(k8['embed_device'])}, "
+          f"ms a batch {json.dumps(k8['embed_batch_ms'])} [{card}]")
     print(f"tracker ms/frame, f32 B=16: K2 route min {min(scan['k2']):.4f}, staged route min "
           f"{min(scan['staged']):.4f} [{card}]")
     print(f"tracker_scan ms/frame, B=128 steady state, frame graph off / on: {json.dumps(fg['ab'])} [{card}]")

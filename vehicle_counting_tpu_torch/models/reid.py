@@ -7,7 +7,9 @@ L2-normalised 512-d embedding (`reid_embed`, the tracker's inference
 path) or the 512->256->num_classes classifier head with BN1d and dropout
 that training uses (`reid_forward`, JAX's call, over `reid_apply`, which
 also takes a data-parallel batch's shards).
-BatchNorm stays explicit (running stats, f32), as in the reference; in
+BatchNorm stays explicit (running stats, f32), as in the reference: at
+inference each convolution's BN, shortcut and ReLU run as one epilogue
+(K8, `ops/reid_epilogue.py`; the eager op chain on the CPU); in
 training it normalises with the batch statistics, over every shard of a
 data-parallel batch (`reid_apply` on a list of shards). The TPU-only
 odd->even spatial pad (`_conv3_even`) is not carried over: it was a
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from vehicle_counting_tpu_torch.ops.reid_block import fold_bn, hwio, reid_block64
+from vehicle_counting_tpu_torch.ops.reid_epilogue import bn_inv, reid_epilogue
 from vehicle_counting_tpu_torch.ops.weight_cache import cached
 from vehicle_counting_tpu_torch.utils.device import on_device
 
@@ -87,24 +90,51 @@ def init_reid(gen: torch.Generator, num_classes: int = 751, device=None) -> Tupl
     return params, stats
 
 
-def _bn(x, p, s):
-    """Inference BatchNorm on NCHW f32: (x - mean) * rsqrt(var + eps) * scale + bias."""
-    inv = torch.rsqrt(s["var"] + BN_EPS)
-    shape = (1, -1, 1, 1)
-    return (x - s["mean"].view(shape)) * inv.view(shape) * p["scale"].view(shape) + p["bias"].view(shape)
-
-
 def _conv(x, w, stride, padding, dtype):
-    """Conv in the compute dtype (f32 accumulation inside cuDNN); f32 out."""
-    return F.conv2d(x.to(dtype), w.to(dtype), stride=stride, padding=padding).float()
+    """Conv in the compute dtype (f32 accumulation inside cuDNN), output in
+    it: the BN epilogue reads it as it comes. On the card, a channels-last
+    input (the embed's crops, and every activation after them) takes its
+    weight channels-last from `_conv_weight`: cuDNN runs both in that
+    layout, and `F.conv2d` would otherwise copy an OIHW weight into it on
+    every call."""
+    if x.dtype != dtype:
+        x = x.to(dtype)
+    if x.is_cuda and not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last):
+        return F.conv2d(x, _conv_weight(w, dtype), stride=stride, padding=padding)
+    return F.conv2d(x, w.to(dtype), stride=stride, padding=padding)
 
 
-def _basic_block(p, s, x, stride: int, dtype):
-    y = torch.relu(_bn(_conv(x, p["conv1"]["w"], stride, 1, dtype), p["bn1"], s["bn1"]))
-    y = _bn(_conv(y, p["conv2"]["w"], 1, 1, dtype), p["bn2"], s["bn2"])
+def _conv_weight(w: torch.Tensor, dtype) -> torch.Tensor:
+    """The OIHW weight `w` in `dtype` and channels-last memory order, the
+    same values, kept per weight tensor (and its in-place version)."""
+    return cached(("conv_nhwc", dtype), (w,), lambda: w.to(dtype).contiguous(memory_format=torch.channels_last))
+
+
+def _bn_epilogue(raw, p, s, dtype, *, f32, feeds_conv, pre_bias=None, residual=None, relu=False):
+    """Inference BN (running stats, f32) on a convolution's output `raw`,
+    then the optional shortcut and ReLU, in one K8 epilogue
+    (`ops/reid_epilogue.py`; the eager chain on CPU tensors). Returns (the
+    f32 result or None unless `f32`, the next convolution's input in
+    `dtype` or None unless `feeds_conv`); in f32 one result serves both."""
+    args = (raw, s["mean"], bn_inv(s["var"], BN_EPS), p["scale"], p["bias"], pre_bias, residual, relu)
+    if dtype == torch.float32:
+        y, _ = reid_epilogue(*args)
+        return y, y
+    return reid_epilogue(*args, f32=f32, lo=dtype if feeds_conv else None)
+
+
+def _block(p, s, x, x_in, stride: int, dtype, *, f32=True, feeds_conv=True):
+    """One BasicBlock, relu(bn2(conv2(relu(bn1(conv1(x))))) + shortcut(x)):
+    x the f32 input (what the identity shortcut reads; None where the block
+    has a downsample), x_in the same in `dtype` (what the convolutions
+    read). Returns what `_bn_epilogue` returns for the block's output."""
+    _, h = _bn_epilogue(_conv(x_in, p["conv1"]["w"], stride, 1, dtype), p["bn1"], s["bn1"], dtype,
+                        f32=False, feeds_conv=True, relu=True)
     if "down" in p:
-        x = _bn(_conv(x, p["down"]["w"], stride, 0, dtype), p["down"]["bn"], s["down"])
-    return torch.relu(x + y)
+        x, _ = _bn_epilogue(_conv(x_in, p["down"]["w"], stride, 0, dtype), p["down"]["bn"], s["down"], dtype,
+                            f32=True, feeds_conv=False)
+    return _bn_epilogue(_conv(h, p["conv2"]["w"], 1, 1, dtype), p["bn2"], s["bn2"], dtype,
+                        f32=f32, feeds_conv=feeds_conv, residual=x, relu=True)
 
 
 # The JAX package's switch under its own name, so that a line written for
@@ -131,35 +161,44 @@ def _hwio_of(w: torch.Tensor) -> torch.Tensor:
     return cached("hwio", (w,), lambda: hwio(w))
 
 
-def _block_fused(p, s, x, dtype):
-    """Stage-1 block through K5 (BN folded), f32 out like `_basic_block`."""
+def _block_fused(p, s, x):
+    """Stage-1 block through K5 (BN folded) on x in the compute dtype; out in it."""
     a1, b1 = fold_bn(p["bn1"]["scale"], p["bn1"]["bias"], s["bn1"]["mean"], s["bn1"]["var"], BN_EPS)
     a2, b2 = fold_bn(p["bn2"]["scale"], p["bn2"]["bias"], s["bn2"]["mean"], s["bn2"]["var"], BN_EPS)
     w1, w2 = _hwio_of(p["conv1"]["w"]), _hwio_of(p["conv2"]["w"])
-    return reid_block64(x.to(dtype), w1, w2, a1, b1, a2, b2).float()
+    return reid_block64(x, w1, w2, a1, b1, a2, b2)
 
 
 def _trunk(params, stats, x: torch.Tensor, dtype, parity: bool) -> torch.Tensor:
     """Inference trunk: x [N, 3, 50, 50] -> the pooled [N, 512] f32, before
-    normalisation."""
-    y = _conv(x, params["stem"]["w"], 1, 1, dtype) + params["stem"]["b"].view(1, -1, 1, 1)
-    y = F.max_pool2d(torch.relu(_bn(y, params["stem"]["bn"], stats["stem"])), 3, 2, 1)
+    normalisation. Each convolution's output goes through one BN epilogue
+    (K8 on the card), which writes only what later ops read: the f32
+    activation where a shortcut or a pool reads it, the copy in `dtype`
+    where a convolution does."""
+    st = params["stem"]
+    y, _ = _bn_epilogue(_conv(x, st["w"], 1, 1, dtype), st["bn"], stats["stem"], dtype, f32=True,
+                        feeds_conv=False, pre_bias=st["b"], relu=True)
+    y = F.max_pool2d(y, 3, 2, 1)
+    y_in = y.to(dtype)
     fused = _reid_block_on()
-    for si, (_, _, ds) in enumerate(STAGES):
-        for bi in range(2):
-            name = f"layer{si + 1}_{bi}"
-            stride = 2 if (ds and bi == 0) else 1
-            # the JAX conditions: stride 1, no downsample, 64 x 25 x 25, and
-            # bf16 on the card (the CPU runs the plain version at any dtype;
-            # `parity` also takes K5's f32 mode on the card, as JAX's
-            # interpret mode does for the trainer's evaluation)
-            if (fused and stride == 1 and "down" not in params[name]
-                    and tuple(y.shape[1:]) == (64, 25, 25)
-                    and (dtype == torch.bfloat16 or parity or y.device.type == "cpu")):
-                y = _block_fused(params[name], stats[name], y, dtype)
-                continue
-            y = _basic_block(params[name], stats[name], y, stride, dtype)
-    return F.avg_pool2d(y, 4, 1).flatten(1)  # 50x50 input -> 4x4 -> 1x1
+    names = [f"layer{si + 1}_{bi}" for si in range(len(STAGES)) for bi in range(2)]
+    for i, name in enumerate(names):
+        p, s, nxt = params[name], stats[name], names[i + 1] if i + 1 < len(names) else None
+        stride = 2 if (STAGES[i // 2][2] and i % 2 == 0) else 1
+        # the JAX conditions: stride 1, no downsample, 64 x 25 x 25, and
+        # bf16 on the card (the CPU runs the plain version at any dtype;
+        # `parity` also takes K5's f32 mode on the card, as JAX's
+        # interpret mode does for the trainer's evaluation)
+        if (fused and stride == 1 and "down" not in p and tuple(y_in.shape[1:]) == (64, 25, 25)
+                and (dtype == torch.bfloat16 or parity or y_in.device.type == "cpu")):
+            y, y_in = None, _block_fused(p, s, y_in)  # its f32 is y_in.float(), made where read
+            continue
+        if y is None and "down" not in p:
+            y = y_in.float()
+        # the f32 output is read by the next block's identity shortcut, or by the pool after the last
+        y, y_in = _block(p, s, y, y_in, stride, dtype, f32=nxt is None or "down" not in params[nxt],
+                         feeds_conv=nxt is not None)
+    return F.avg_pool2d(y_in.float() if y is None else y, 4, 1).flatten(1)  # 50x50 input -> 4x4 -> 1x1
 
 
 def _l2_normalise(emb: torch.Tensor) -> torch.Tensor:

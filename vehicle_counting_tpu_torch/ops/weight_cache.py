@@ -1,10 +1,12 @@
-"""Kernel-layout weights kept per source tensor (kernels K5 and K6).
+"""Kernel-layout weights kept per source tensor (kernels K5, K6 and K8).
 
 K5's kernels (`ops/reid_block.py`) and K6's bf16 kernel (`ops/conv_s2.py`)
 take their weights in layouts of their own. Packing costs a few device
 kernels per call, more than K6's whole launch at small shapes, so the
 wrappers pack through `cached`, which keeps each result while its source
-tensors live and stay unchanged.
+tensors live and stay unchanged. The ReID trunk keeps the same way each BN
+layer's rsqrt(var + eps) for K8 (`ops/reid_epilogue.py::bn_inv`) and each
+conv weight in channels-last order (`models/reid.py::_conv_weight`).
 
 The key is each source tensor's identity, checked on every hit: a weak
 reference to it, its `_version` (moved by every in-place update, and shared
@@ -25,7 +27,7 @@ from typing import Callable, Hashable, Sequence
 
 import torch
 
-MAX_ENTRIES = 64
+MAX_ENTRIES = 256  # the ReID trunk alone keeps 37 per weight set, one set per card
 
 _ENTRIES: "OrderedDict[tuple, tuple]" = OrderedDict()
 _LOCK = threading.RLock()  # re-entrant: a weak reference's callback may run while it is held
@@ -38,7 +40,7 @@ def _state(t: torch.Tensor):
         version = t._version
     except RuntimeError:  # an inference tensor
         return None
-    return version, t.device, t.dtype, tuple(t.shape), t.data_ptr()
+    return version, t.device, t.dtype, t.shape, t.data_ptr()
 
 
 def _drop(key, ref) -> None:
@@ -53,14 +55,18 @@ def cached(tag: Hashable, sources: Sequence[torch.Tensor], make: Callable[[], to
     """`make()`, computed from `sources` (what `tag` names), or the value
     kept from an earlier call on the same, unchanged source tensors."""
     states = [_state(t) for t in sources]
-    if any(s is None for s in states):
+    if None in states:
         return make()
-    key = (tag, tuple(id(t) for t in sources))
-    with _LOCK:
+    key = (tag, *map(id, sources))
+    with _LOCK:  # the hit path, on every launch: no generator expressions
         entry = _ENTRIES.get(key)
-        if entry is not None and entry[1] == states and all(r() is t for r, t in zip(entry[0], sources)):
-            _ENTRIES.move_to_end(key)
-            return entry[2]
+        if entry is not None and entry[1] == states:
+            for ref, t in zip(entry[0], sources):
+                if ref() is not t:
+                    break
+            else:
+                _ENTRIES.move_to_end(key)
+                return entry[2]
     with torch.no_grad():  # a pack holds no graph, so nothing keeps its sources alive
         value = make()
     refs = [weakref.ref(t, lambda ref, key=key: _drop(key, ref)) for t in sources]

@@ -239,7 +239,8 @@ def serving_frames_shape(
 
 
 # kernel route -> the `csrc/` library that holds its kernel
-_ROUTE_LIBS = {"K1": "crops", "K2": "cascade", "K3": "cascade", "staged-K4": "assignment", "K5": "reid_block"}
+_ROUTE_LIBS = {"K1": "crops", "K2": "cascade", "K3": "cascade", "staged-K4": "assignment", "K5": "reid_block",
+               "K8": "reid_epilogue"}
 
 
 def _kernel_modes(hp=None, platform: str = "cuda") -> Dict[str, str]:
@@ -247,7 +248,8 @@ def _kernel_modes(hp=None, platform: str = "cuda") -> Dict[str, str]:
     crop gather (K1 on the card, the plain gather on the CPU), the
     association (K2 for all classes, K3 per class in scan mode or for one
     class, or the staged route with K4's fused stage; plain on the CPU),
-    and the ReID block (K5, where its switch is on)."""
+    the ReID block (K5, where its switch is on), and the ReID trunk's BN
+    epilogue (K8)."""
     from vehicle_counting_tpu_torch.models.reid import _reid_block_on
     from vehicle_counting_tpu_torch.tracking.tracker import _use_cascade_kernel
 
@@ -261,6 +263,7 @@ def _kernel_modes(hp=None, platform: str = "cuda") -> Dict[str, str]:
             modes["cascade"] = "staged-K4" if card else "staged-plain"
         if _reid_block_on():
             modes["reid_block"] = "K5" if card else "plain"
+        modes["reid_epilogue"] = "K8" if card else "plain"
     return modes
 
 

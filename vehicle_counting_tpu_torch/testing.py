@@ -148,6 +148,71 @@ def reid_block_params(rng: np.random.Generator, c: int = 64):
     return p, s
 
 
+
+def reid_bn_eager(x, p, s):
+    """Inference BN on an f32 NCHW tensor as eager torch ops: what the ReID
+    trunk ran after each convolution before K8."""
+    import torch
+
+    from vehicle_counting_tpu_torch.models.reid import BN_EPS
+
+    inv = torch.rsqrt(s["var"] + BN_EPS)
+    shape = (1, -1, 1, 1)
+    return (x - s["mean"].view(shape)) * inv.view(shape) * p["scale"].view(shape) + p["bias"].view(shape)
+
+
+def reid_conv_eager(x, w, stride, padding, dtype):
+    """A trunk convolution as before K8: in `dtype` (OIHW weight), f32 out."""
+    import torch.nn.functional as F
+
+    return F.conv2d(x.to(dtype), w.to(dtype), stride=stride, padding=padding).float()
+
+
+def reid_block_eager(p, s, x, stride, dtype):
+    """One BasicBlock of the ReID trunk as eager torch ops on an f32 input,
+    f32 out: cuDNN's convolutions and the op chain between them, the
+    trunk's block before K8 (the library call K5 is held against)."""
+    import torch
+
+    y = torch.relu(reid_bn_eager(reid_conv_eager(x, p["conv1"]["w"], stride, 1, dtype), p["bn1"], s["bn1"]))
+    y = reid_bn_eager(reid_conv_eager(y, p["conv2"]["w"], 1, 1, dtype), p["bn2"], s["bn2"])
+    if "down" in p:
+        x = reid_bn_eager(reid_conv_eager(x, p["down"]["w"], stride, 0, dtype), p["down"]["bn"], s["down"])
+    return torch.relu(x + y)
+
+# The trunk's BN epilogues (K8), by what follows the convolution: the f32
+# output, the copy for the next convolution, and the options.
+EPILOGUE_CASES = {
+    "stem": dict(pre_bias=True, residual=False, relu=True, f32=True, lo=False),
+    "conv1": dict(pre_bias=False, residual=False, relu=True, f32=False, lo=True),
+    "down": dict(pre_bias=False, residual=False, relu=False, f32=True, lo=False),
+    "conv2": dict(pre_bias=False, residual=True, relu=True, f32=True, lo=True),
+    "conv2_to_down": dict(pre_bias=False, residual=True, relu=True, f32=False, lo=True),
+}
+
+
+def reid_epilogue_operands(rng: np.random.Generator, shape) -> Dict[str, np.ndarray]:
+    """Numpy f32 operands of one BN epilogue: x (a convolution's output,
+    [N, C, H, W]), a residual like x, and the [C] vectors mean, var, scale,
+    bias and pre_bias. x holds zeros of both signs, ties with the mean,
+    infinities and a NaN besides its normal values."""
+    n, c = shape[:2]
+    x = (rng.standard_normal(shape) * 2.0).astype(np.float32)
+    mean = (rng.standard_normal(c) * 0.2).astype(np.float32)
+    out = {"x": x, "residual": (rng.standard_normal(shape)).astype(np.float32), "mean": mean,
+           "var": rng.uniform(0.05, 2.0, c).astype(np.float32), "scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+           "bias": (rng.standard_normal(c) * 0.1).astype(np.float32),
+           "pre_bias": (rng.standard_normal(c) * 0.1).astype(np.float32)}
+    flat = x.reshape(n, c, -1)
+    k = flat.shape[-1]
+    flat[0, :, 0] = mean  # (x - mean) == 0
+    flat[0, :, min(1, k - 1)] = -0.0
+    flat[-1, 0, k // 2] = np.inf
+    flat[-1, c - 1, k - 1] = -np.inf
+    flat[n // 2, c // 2, k // 3] = np.nan
+    return out
+
+
 def conv1_s2_inputs(rng: np.random.Generator, shape=(1, 32, 64, 32)):
     """Numpy NHWC input and JAX-layout {"w": HWIO, "b"} of the layer-1 conv."""
     x = (rng.standard_normal(shape) * 0.5).astype(np.float32)
