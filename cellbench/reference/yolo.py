@@ -21,7 +21,6 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
-STRIDES = (8, 16, 32)
 MAX_WH = 7680.0  # class offset of the batched NMS
 
 
@@ -48,6 +47,31 @@ def layer_table(cfg) -> List[Tuple]:
         out.append((f, n, m, cin, cout, args))
         ch.append(cout)
     return out
+
+
+def strides(cfg) -> Tuple[int, ...]:
+    """The stride of each Detect input, in order, as ultralytics' stride
+    probe finds it: a Conv multiplies the running stride by its stride
+    argument, nn.Upsample halves it, a Concat takes its inputs' stride
+    (they must agree), the other modules keep it."""
+    st = []  # st[j]: layer j's output stride
+    for f, n, m, cin, cout, args in layer_table(cfg):
+        s = st[f] if st and isinstance(f, int) else 1
+        if m == "Conv":
+            s *= args[2] if len(args) > 2 else 1
+        elif m == "nn.Upsample":
+            if s % 2:
+                raise ValueError(f"layer {len(st)}: nn.Upsample of a stride-{s} input")
+            s //= 2
+        elif m == "Concat":
+            ins = {st[j] for j in f}
+            if len(ins) != 1:
+                raise ValueError(f"layer {len(st)}: Concat of inputs at strides {sorted(ins)}")
+            s = ins.pop()
+        elif m == "Detect":
+            return tuple(st[j] for j in f)
+        st.append(s)
+    raise ValueError("the layer table has no Detect layer")
 
 
 def conv_shapes(cfg) -> Dict[str, object]:
@@ -118,13 +142,18 @@ def forward(cfg, weights, images: torch.Tensor, q=None) -> List[torch.Tensor]:
 
 
 def decode(cfg, heads) -> Dict[str, torch.Tensor]:
-    """Every anchor of every scale: boxes xyxy in network pixels, score =
-    sigmoid(obj) * sigmoid(max class logit), class = first arg-max.
-    Anchor order: scale, then cell (row-major), then anchor."""
+    """Every anchor of every scale, each at its stride in the table
+    (`strides`): boxes xyxy in network pixels, score = sigmoid(obj) *
+    sigmoid(max class logit), class = first arg-max. Anchor order: scale,
+    then cell (row-major), then anchor. Raises unless there is one anchor
+    set and one head per Detect input."""
     na = len(cfg["anchors"][0]) // 2
     nc = cfg["nc"]
+    st = strides(cfg)
+    if not len(heads) == len(st) == len(cfg["anchors"]):
+        raise ValueError(f"{len(cfg['anchors'])} anchor sets for {len(st)} Detect inputs and {len(heads)} heads")
     boxes, scores, classes = [], [], []
-    for head, stride, anc in zip(heads, STRIDES, cfg["anchors"]):
+    for head, stride, anc in zip(heads, st, cfg["anchors"]):
         b, _, h, w = head.shape
         p = head.float().reshape(b, na, nc + 5, h, w).permute(0, 3, 4, 1, 2)  # [B, h, w, na, no]
         gy, gx = torch.meshgrid(torch.arange(h, device=head.device), torch.arange(w, device=head.device),

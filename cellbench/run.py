@@ -7,21 +7,29 @@ from the root of a checkout. Everything is found by name: the cell in
 `cellbench/limits/<cell>.json` and, in a traced run, one reader
 `cellbench/metrics/<metric>.py` per per-layer metric of the cell.
 
-The run makes the weights and a pool of raw frames from the seed on the
-card, calibrates the confidence threshold with the reference detector,
-warms up, then streams batches for `--seconds` through the port's counting
+The run first holds the port's detector, built from the configuration
+(its anchors as given, the strides of its layer table), to the
+configuration's conv shapes and refuses any other network. It then makes
+the weights and a pool of raw frames from the seed on the card,
+calibrates the confidence threshold with the reference detector, warms
+up, then streams batches for `--seconds` through the port's counting
 step, `pipeline.step.pipeline_batch_step` on the I420 upload, fed as the
 port's `CountingPipeline` feeds it: a producer thread takes the next B raw
 frames from the pool, letterboxes them on the host and uploads them one
 batch ahead; the main thread runs the step with the tracker state carried
-from batch to batch and reads the previous batch's track rows back. After
+from batch to batch and reads the previous batch's track rows back. The
+host bounds the step, so on the card the window keeps the host steady:
+the main thread on a core of its own, the producer and its letterbox
+threads on the others, freed host memory kept for the next batch. After
 the window it judges the first batch and a sample of the window's batches,
 drawn from the seed, against the plain reference (`judge.py`), and prints
 one JSON line last on standard output.
 
-With `--trace 1` the run records CUDA events at the step's layer
-boundaries over the window and profiles a few batches after it, and
-reports the per-layer metrics instead of the end-to-end ones.
+With `--trace 0` the run, after the window, traces the device alone over
+the batches that take the pool once, for the card's busy time per frame.
+With `--trace 1` it records CUDA events at the step's layer boundaries
+over the window and profiles a few batches after it, and reports the
+per-layer metrics instead of the end-to-end ones.
 """
 
 import time
@@ -42,6 +50,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "vehicle_counting_tpu")
 PROFILED_FRAMES = 128  # frames of whole batches in the traced run's profiler window
 WARMUP_BATCHES = 2
+MIN_WINDOW_BATCHES = 2  # so that a window's batch latencies have a 90th percentile
 
 
 def _load_json(path, what):
@@ -92,6 +101,86 @@ class Spec:
                              "which this harness does not make (still_scene)")
         if self.cell.get("chips", 1) != 1:
             raise SystemExit(f"cellbench: {self.workload} asks for {self.cell['chips']} chips; this harness runs one")
+
+
+def _tree_difference(ref, port, path):
+    """The first place where the port's parameter tree differs from the
+    configuration's conv shapes (`reference/yolo.py::conv_shapes`), or None."""
+    if isinstance(ref, tuple):  # one conv, (cout, cin, k)
+        co, ci, k = ref
+        if not isinstance(port, dict) or set(port) != {"w", "b"}:
+            return f"{path}: the configuration has a conv, the port a {type(port).__name__}"
+        for n, want in (("w", (co, ci, k, k)), ("b", (co,))):
+            if tuple(port[n].shape) != want:
+                return f"{path}.{n}: the port has {tuple(port[n].shape)}, the configuration {want}"
+        return None
+    if isinstance(ref, list):
+        if not isinstance(port, list) or len(port) != len(ref):
+            got = len(port) if isinstance(port, list) else type(port).__name__
+            return f"{path}: the port has {got} blocks, the configuration {len(ref)}"
+        found = (_tree_difference(r, p, f"{path}[{i}]") for i, (r, p) in enumerate(zip(ref, port)))
+    else:
+        if not isinstance(port, dict):
+            return f"{path}: the port has {type(port).__name__}, the configuration a module"
+        found = (_tree_difference(ref[k], port[k], f"{path}.{k}") if k in port and k in ref else
+                 f"{path}.{k}: only {'the configuration' if k in ref else 'the port'} has it"
+                 for k in list(ref) + [k for k in port if k not in ref])
+    return next((d for d in found if d), None)
+
+
+def port_yolo_config(cfg):
+    """The port's `YoloConfig` for the configuration: its anchors as given
+    and its strides from its layer table. Raises SystemExit, naming the
+    first difference, unless the port's own network for it, initialised
+    once on the CPU, has the configuration's conv shapes leaf by leaf."""
+    import torch
+
+    from cellbench.reference import yolo as yolo_ref
+    from vehicle_counting_tpu_torch.models.yolo import YoloConfig, init_yolov5
+
+    sets = cfg["anchors"]
+    if any(len(a) % 2 or len(a) != len(sets[0]) for a in sets):
+        raise SystemExit(f"cellbench: the anchor sets {sets} are not of one count of (w, h) pairs")
+    try:
+        st = yolo_ref.strides(cfg)
+    except ValueError as e:
+        raise SystemExit(f"cellbench: the configuration's layer table: {e}")
+    if len(st) != len(sets):
+        raise SystemExit(f"cellbench: {len(sets)} anchor sets for {len(st)} Detect inputs")
+    ycfg = YoloConfig(variant=cfg["variant"], num_classes=cfg["nc"],
+                      anchors=tuple(tuple(zip(a[0::2], a[1::2])) for a in sets), strides=st)
+    try:
+        tree = init_yolov5(torch.Generator(), ycfg)
+    except (KeyError, ValueError, NotImplementedError) as e:
+        raise SystemExit(f"cellbench: the port builds no {cfg['variant']!r} network ({type(e).__name__}: {e})")
+    diff = _tree_difference(yolo_ref.conv_shapes(cfg), tree, "layer")
+    if diff:
+        raise SystemExit(f"cellbench: the port's {cfg['variant']} is not the configuration's network: {diff}")
+    return ycfg
+
+
+def split_cores(allowed):
+    """(the main thread's cores, the feed's cores) out of the cores the
+    process may run on: the main thread, which dispatches every step, gets
+    the last core to itself, and the producer thread and the letterbox's
+    threads, which it starts, share the others; None with one core."""
+    cores = sorted(allowed)
+    return ({cores[-1]}, set(cores[:-1])) if len(cores) > 1 else None
+
+
+def keep_freed_memory():
+    """glibc's allocator set to keep what the process frees: no block is
+    mapped for itself (M_MMAP_MAX 0) and the heap's top is given back only
+    past 1 GiB (M_TRIM_THRESHOLD), so the host buffers of one batch (the
+    letterbox's frames, the step's) are reused by the next instead of being
+    unmapped and faulted in again. Nothing where the C library has no
+    `mallopt`."""
+    import ctypes
+
+    mallopt = getattr(ctypes.CDLL(None), "mallopt", None)
+    if mallopt is not None:
+        mallopt(-4, 0)  # M_MMAP_MAX
+        mallopt(-1, 1 << 30)  # M_TRIM_THRESHOLD
 
 
 def calibrate(cfg, traffic, yolo_w, pool, device, block=16):
@@ -232,7 +321,7 @@ def run(spec, seed, seconds, trace, device, fault=None, control=False, readings=
     from cellbench import counts, judge, weights
     from cellbench import trace as trace_mod
     from vehicle_counting_tpu_torch.models.reid import cast_conv_weights
-    from vehicle_counting_tpu_torch.models.yolo import DEFAULT_ANCHORS, VARIANTS, YoloConfig, cast_params
+    from vehicle_counting_tpu_torch.models.yolo import cast_params
     from vehicle_counting_tpu_torch.ops.letterbox import content_upload_exact, host_letterbox_yuv420
     from vehicle_counting_tpu_torch.pipeline import step as step_mod
     from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, init_states
@@ -243,13 +332,12 @@ def run(spec, seed, seconds, trace, device, fault=None, control=False, readings=
     on_card = device.type == "cuda"
     b = cfg["batch"]
     src_hw, net_hw = tuple(cfg["source_hw"]), tuple(cfg["net_hw"])
-    if VARIANTS.get(cfg["variant"]) != (cfg["depth_multiple"], cfg["width_multiple"]) or \
-            [list(sum(a, ())) for a in DEFAULT_ANCHORS] != cfg["anchors"]:
-        raise SystemExit(f"cellbench: the port's {cfg['variant']} is not the configuration's network")
     if not content_upload_exact(src_hw, net_hw):
         raise SystemExit(f"cellbench: the content-row upload is not exact for {src_hw} -> {net_hw}")
 
     phases = [("imports", time.perf_counter())]
+    ycfg = port_yolo_config(cfg)
+    phases.append(("network check", time.perf_counter()))
     g = weights.generator(seed, device)
     yolo_w, reid_p, reid_s = weights.draw(cfg, g, device)
     pool = weights.frame_pool(cfg, spec.traffic, g, device)
@@ -270,15 +358,18 @@ def run(spec, seed, seconds, trace, device, fault=None, control=False, readings=
                               max_age=tc["max_age"], n_init=tc["n_init"], feat_dtype=tc["feat_dtype"]),
         num_classes=tc["num_classes"], min_confidence=tc["min_confidence"], nms_max_overlap=tc["nms_max_overlap"],
         max_embed=tc["max_embed"])
-    kw = dict(ycfg=YoloConfig(variant=cfg["variant"], num_classes=cfg["nc"]), hp=hp, image_size=net_hw,
-              src_hw=src_hw, conf_thres=conf, iou_thres=cfg["iou_thres"], max_det=cfg["max_det"], dtype=dtype,
-              frames_format="letterboxed_yuv420")
+    kw = dict(ycfg=ycfg, hp=hp, image_size=net_hw, src_hw=src_hw, conf_thres=conf, iou_thres=cfg["iou_thres"],
+              max_det=cfg["max_det"], dtype=dtype, frames_format="letterboxed_yuv420")
     lut_dev = torch.as_tensor(lut, dtype=torch.int32, device=device)
     frame_valid = torch.ones((b,), dtype=torch.bool, device=device)
     if fault == "half":
         frame_valid[b // 2:] = False
 
+    placement = split_cores(os.sched_getaffinity(0)) if on_card else None
+
     def produce(i):
+        if placement and i == 0:  # the producer's first call, on its own thread
+            os.sched_setaffinity(0, placement[1])
         j = (i * b) % n_pool
         t_take = time.perf_counter()
         yuv = host_letterbox_yuv420(pool_np[j:j + b], net_hw, content_only=True)
@@ -337,6 +428,8 @@ def run(spec, seed, seconds, trace, device, fault=None, control=False, readings=
 
     rng = np.random.default_rng(int(seed) % (1 << 63))
     check_at = sorted(rng.uniform(0, seconds, size=cfg["checked_batches"]).tolist())
+    if placement:
+        os.sched_setaffinity(0, placement[0])  # this thread alone; threads it starts later inherit it
     with Layers(step_mod, on_card, fault) as layers:
         try:
             for w in range(WARMUP_BATCHES):
@@ -355,7 +448,7 @@ def run(spec, seed, seconds, trace, device, fault=None, control=False, readings=
             log("cellbench: set-up " + ", ".join(
                 f"{name} {t - (phases[i - 1][1] if i else T_PROCESS):.3f} s" for i, (name, t) in enumerate(phases)),
                 file=sys.stderr)
-            while time.perf_counter() - t_win0 < seconds:
+            while len(items) < MIN_WINDOW_BATCHES or time.perf_counter() - t_win0 < seconds:
                 due = bool(check_at) and time.perf_counter() - t_win0 >= check_at[0]
                 if due:
                     check_at.pop(0)
@@ -365,6 +458,8 @@ def run(spec, seed, seconds, trace, device, fault=None, control=False, readings=
             finish()
             t_end = items[-1]["t_done"]
             layers.timed = False
+            if placement:  # the window has closed: the profiler's threads start from this one
+                os.sched_setaffinity(0, placement[0] | placement[1])
             if on_card:
                 torch.cuda.synchronize(device)
             window_s = t_end - t_win0
@@ -391,6 +486,20 @@ def run(spec, seed, seconds, trace, device, fault=None, control=False, readings=
                         rec.device_window = trace_mod.profile(profiled, shapes=False)
                     rec.peaks = counts.peaks(torch.cuda.get_device_name(device))
                     rec.k1_bytes = _k1_bytes(cfg, hp, rec.window, rec.window.result, counts)
+            elif on_card:
+                # the card's time per frame: the device's busy time over the
+                # batches that take the whole pool once, traced after the window
+                n_card = max(1, n_pool // b)
+
+                def card_batches():
+                    for _ in range(n_card):
+                        iterate(check=False)
+                    finish()
+
+                card = trace_mod.profile(card_batches, host=False)
+                device_busy_ms = card.busy_us() * 1e-3 / (n_card * b)
+                log(f"cellbench: the device busy {card.busy_us() * 1e-3:.4f} ms over {n_card} batches of {b} "
+                    f"frames, {len(card.ops)} operations", file=sys.stderr)
             memory_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
         finally:
             loop["fut"].result()
@@ -431,12 +540,16 @@ def run(spec, seed, seconds, trace, device, fault=None, control=False, readings=
         if rec.device_window is not None:
             dev_info.update(busy_s=rec.device_window.busy_us() * 1e-6, window_s=rec.device_window.window_us * 1e-6)
     else:
-        p90 = statistics.quantiles(latencies, n=10)[-1] if len(latencies) > 1 else latencies[0]
+        lat = rec.latencies
+        p90 = statistics.quantiles(lat, n=10)[-1] if len(lat) > 1 else lat[0]
         values = {"frames_per_s": frames / window_s, "batch_latency_p90_ms": 1e3 * p90, "setup_s": setup_s}
-        metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]} for m in spec.end_to_end}
-        log(f"cellbench: {len(latencies)} batches of {b} frames in {window_s:.4f} s; latency median "
-            f"{1e3 * statistics.median(latencies):.4f} ms, p90 over {len(latencies)} batches "
-            f"({sum(x > p90 for x in latencies)} beyond it)", file=sys.stderr)
+        if on_card:
+            values["device_busy_ms_per_frame"] = device_busy_ms
+        metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]} for m in spec.end_to_end
+                   if m["name"] in values}
+        log(f"cellbench: {len(lat)} batches of {b} frames in {window_s:.4f} s ({frames / window_s:.4f} frames/s); "
+            f"latency median {1e3 * statistics.median(lat):.4f} ms, p90 over {len(lat)} batches "
+            f"({sum(x > p90 for x in lat)} beyond it)", file=sys.stderr)
     log(f"cellbench: peak device memory {memory_peak} bytes; threshold {conf:.6g}", file=sys.stderr)
     result.update(metrics=metrics, device=dev_info)
     if trace and rec.device_window is not None:
@@ -511,11 +624,12 @@ def main(argv=None, device=None, fault=None, root=ROOT):
         torch.cuda.set_device(device)
         # few threads in one process: no idle intra-op pool spinning beside
         # the main thread, and cv2 single-threaded inside each of the
-        # letterbox's frame threads
+        # letterbox's frame threads; host memory kept for reuse
         import cv2
 
         torch.set_num_threads(1)
         cv2.setNumThreads(1)
+        keep_freed_memory()
     try:
         result = run(spec, args.seed, args.seconds, args.trace, torch.device(device), fault=fault)
     except Exception:

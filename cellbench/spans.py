@@ -66,19 +66,25 @@ def device_only(w):
 def host_clock(w):
     """The device window's clock -> the host's, both in the trace's us: the
     line through the two marker kernels, each put at the end of the runtime
-    call that launched it: the window's first `cudaLaunchKernel`, and the
-    last one before its last `cudaDeviceSynchronize` (the harness launches
-    the second marker, then synchronizes and pauses). The profiler maps the
-    device's clock onto the host's with a drift that grows as a process
-    runs; the markers bound the window on both clocks. Where the window
-    holds no such calls (a trace of the host's operations), the identity."""
-    launches = [(a, b) for a, b, name, _ in w.host if name.startswith("cudaLaunchKernel")]
-    syncs = [a for a, _, name, _ in w.host if name == "cudaDeviceSynchronize"]
-    if syncs and launches and launches[0][0] < syncs[-1]:
-        launches = [ab for ab in launches if ab[0] < syncs[-1]]
-    if len(launches) < 2 or w.hi <= w.lo:
+    call that launched it. `Window.read` finds those calls by correlation id
+    (`w.marks_host`); a window without them takes its first
+    `cudaLaunchKernel` and the last one before its last
+    `cudaDeviceSynchronize` (the harness launches the second marker, then
+    synchronizes and pauses). The profiler maps the device's clock onto the
+    host's with a drift that grows as a process runs; the markers bound the
+    window on both clocks. Where the window holds no such calls (a trace of
+    the host's operations), the identity."""
+    marks = getattr(w, "marks_host", None)
+    if marks is None:
+        launches = [(a, b) for a, b, name, _ in w.host if name.startswith("cudaLaunchKernel")]
+        syncs = [a for a, _, name, _ in w.host if name == "cudaDeviceSynchronize"]
+        if syncs and launches and launches[0][0] < syncs[-1]:
+            launches = [ab for ab in launches if ab[0] < syncs[-1]]
+        if len(launches) >= 2:
+            marks = launches[0][1], launches[-1][1]
+    if marks is None or w.hi <= w.lo:
         return lambda us: us
-    h0, h1 = launches[0][1], launches[-1][1]
+    h0, h1 = marks
     scale = (h1 - h0) / (w.hi - w.lo)
     return lambda us: h0 + (us - w.lo) * scale
 

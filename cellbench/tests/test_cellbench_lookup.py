@@ -17,7 +17,7 @@ def test_every_cell_of_the_benchmark_resolves():
         spec = run.Spec(run.ROOT, cell["name"])
         assert spec.cfg["name"] == cell["config"] and spec.traffic["name"] == cell["traffic"]
         assert set(spec.readers) == {m["name"] for m in bench["per_layer"]}
-        assert {m["name"] for m in spec.end_to_end} == {"frames_per_s", "setup_s"}
+        assert {m["name"] for m in spec.end_to_end} == {"device_busy_ms_per_frame", "setup_s"}
 
 
 @pytest.mark.parametrize("what", ["workload", "config", "traffic", "limits", "metric"])
@@ -90,7 +90,7 @@ def test_new_config_mix_and_metric_by_new_files_alone(tmp_path):
     bench["workloads"].append({"name": "tiny2-b2", "config": "tiny-b2", "traffic": "tiny2", "chips": 1,
                                "why": "a throwaway"})
     bench["per_layer"].append({"name": "batches_per_s", "unit": "1/s", "better": "higher", "source": "host_clock",
-                               "layer": "host feed", "moves": "frames_per_s", "workloads": ["tiny2-b2"]})
+                               "layer": "host feed", "moves": "device_busy_ms_per_frame", "workloads": ["tiny2-b2"]})
     with open(bench_path, "w") as f:
         json.dump(bench, f)
     out = io.StringIO()

@@ -14,10 +14,10 @@ from cellbench.tests.tiny import make_root
 ARGS = ["--workload", "tiny-dense", "--seed", str(2 ** 31 + 11), "--seconds", "1.5"]
 
 
-def _line(root, trace=0, fault=None):
+def _line(root, trace=0, fault=None, args=ARGS):
     out = io.StringIO()
     with redirect_stdout(out):
-        rc = run.main(ARGS + ["--trace", str(trace)], device="cpu", fault=fault, root=root)
+        rc = run.main(args + ["--trace", str(trace)], device="cpu", fault=fault, root=root)
     assert rc == 0
     return json.loads(out.getvalue().strip().splitlines()[-1])
 
@@ -32,17 +32,20 @@ def test_one_contract_line(root):
     assert list(res)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(res)[-1] == "checks"
     assert res["correct"] is True and res["attempted"] > 0 and res["failed"] == 0
-    assert set(res["metrics"]) == {"frames_per_s", "setup_s"}
+    # the card's busy time per frame is read from a device trace: the CPU has none
+    assert set(res["metrics"]) == {"setup_s"}
     assert all(m["value"] > 0 for m in res["metrics"].values())
     assert set(res["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
     assert all(set(c) == {"value", "limit"} for c in res["checks"].values())
 
 
 def test_traced_line_holds_the_host_metrics(root):
-    res = _line(root, trace=1)
+    # a window of no length holds the harness's least number of batches,
+    # two, however slow the CPU: the p90 reader has two batches to read
+    res = _line(root, trace=1, args=ARGS[:-1] + ["0"])
     assert res["correct"] is True
     # on the CPU only the host clock's metrics have something to read
-    assert set(res["metrics"]) == {"feed_wait_ms", "batch_latency_p90_ms"}
+    assert set(res["metrics"]) == {"host_frames_per_s", "feed_wait_ms", "batch_latency_p90_ms"}
 
 
 @pytest.mark.parametrize("fault", ["state", "half", "answer"])
@@ -69,3 +72,12 @@ def test_the_control_on_the_card_fails_every_seed():
     for seed in (2 ** 31 + 21, 2 ** 31 + 22, 2 ** 31 + 23):
         res = run.run(spec, seed, 3.0, 0, torch.device("cuda", 0), control=True, log=lambda *a, **k: None)
         assert any(res["control"][k] > c["limit"] for k, c in res["checks"].items()), res["control"]
+
+
+@pytest.mark.parametrize("allowed, split", [
+    ({0, 1, 2, 3, 4, 5, 6, 7}, ({7}, {0, 1, 2, 3, 4, 5, 6})),
+    ({2, 5}, ({5}, {2})),
+    ({3}, None),
+])
+def test_the_main_thread_gets_a_core_of_its_own(allowed, split):
+    assert run.split_cores(allowed) == split

@@ -1,18 +1,22 @@
-"""A `torch.profiler` window of the traced run, read back from its Chrome
-trace: the device's operations between two marker kernels and, where the
-host's operations were recorded with their shapes, each
-`aten::convolution` with its shapes and the device time of the kernels it
-launched, and the host's activity over the device's idle gaps. Recording
-the host's operations and shapes slows the host, so the device's idle
-share is taken from a window that records the device's activity alone,
-where the host shows only its CUDA runtime calls.
+"""A `torch.profiler` window of a run, read back from its Chrome trace:
+the device's operations between two marker kernels and, where the host's
+operations were recorded with their shapes, each `aten::convolution` with
+its shapes and the device time of the kernels it launched, and the host's
+activity over the device's idle gaps. Recording the host's operations and
+shapes slows the host, so the device's idle share and busy time are taken
+from a window that records the device's activity alone, where the host
+shows only its CUDA runtime calls.
 
 The markers: the profiler maps the device's clock onto the host's with a
 drift of either sign, so a window bounded on the host's clock can lose its
 first or last kernels. The region is bracketed on the device by two
-launches of a marker kernel, with pauses before and after it inside the
-trace; a trace that lost either marker's device event is taken again with
-pauses twice as long (the method of the port's `chip_smoke.py`).
+launches of the spin kernel of `torch.cuda._sleep`, which the program never
+launches, with pauses before and after them inside the trace, and found on
+the device by name. A later profiler session of a process can lose the
+device records of its first few kernels, so a few other kernels are
+launched ahead of the first marker to take that loss. A trace without
+exactly two markers on the device is taken again with pauses twice as
+long (the method of the port's `chip_smoke.py`).
 """
 
 from __future__ import annotations
@@ -26,7 +30,11 @@ import time
 from collections import defaultdict
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CALLS = ("cuda_runtime", "cuda_driver")
 REGION = "cellbench_region"
+SPIN = "spin_kernel"  # the kernel of torch.cuda._sleep
+SPIN_CYCLES = 1000
+AHEAD = 8  # kernels launched ahead of the first marker
 
 
 def profile(fn, host=True, shapes=True, tries=(0.25, 0.5, 1.0)):
@@ -37,7 +45,7 @@ def profile(fn, host=True, shapes=True, tries=(0.25, 0.5, 1.0)):
     import torch
     from torch.profiler import ProfilerActivity
 
-    marker = torch.zeros(8, device="cuda")
+    ahead = torch.zeros(8, device="cuda")
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
     seen = []
     for pause in tries:
@@ -45,12 +53,14 @@ def profile(fn, host=True, shapes=True, tries=(0.25, 0.5, 1.0)):
         os.close(fd)
         try:
             with torch.profiler.profile(activities=activities, record_shapes=host and shapes) as prof:
+                for _ in range(AHEAD):
+                    ahead.add_(1.0)
                 torch.cuda.synchronize()
                 time.sleep(pause)
                 with torch.profiler.record_function(REGION):
-                    marker.add_(1.0)
+                    torch.cuda._sleep(SPIN_CYCLES)
                     out = fn()
-                    marker.add_(1.0)
+                    torch.cuda._sleep(SPIN_CYCLES)
                     torch.cuda.synchronize()
                 time.sleep(pause)
             prof.export_chrome_trace(path)
@@ -75,35 +85,31 @@ class Window:
 
     @classmethod
     def read(cls, events):
-        """The window of a trace; a trace without the host's named region
-        (the device's activity alone) is bounded by its first and last
-        kernel launches, the two markers."""
+        """The window of a trace, or None unless the device shows exactly two
+        markers. A trace of the device's activity alone (no host region)
+        also gives `marks_host`: the end of each marker's launch call on the
+        host's clock, found by correlation id, or None."""
         region = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))) for e in events
                   if e.get("name") == REGION and e.get("cat") != "gpu_user_annotation"]
         start = min((r[0] for r in region), default=float("-inf"))
         stop = max((r[1] for r in region), default=float("inf"))
-        calls = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                        and start <= float(e["ts"]) <= stop and (e.get("args") or {}).get("correlation") is not None),
-                       key=lambda e: float(e["ts"]))
-        launches = [e for e in calls if str(e.get("name", "")).startswith("cudaLaunchKernel")]
-        # the markers are the first launch and the last on the same thread
-        launches = [e["args"]["correlation"] for e in launches if launches and e.get("tid") == launches[0].get("tid")]
-        if len(launches) < 2:
-            return None
-        first, last = launches[0], launches[-1]
-        device = [e for e in events if e.get("cat") in DEVICE_CATS]
-        marks = {(e.get("args") or {}).get("correlation"): e for e in device}
-        if first not in marks or last not in marks:
+        device = sorted((e for e in events if e.get("cat") in DEVICE_CATS), key=lambda e: float(e["ts"]))
+        marks = [e for e in device if SPIN in str(e.get("name", ""))]
+        if len(marks) != 2:
             return None
         self = cls()
-        self.lo = float(marks[first]["ts"]) + float(marks[first].get("dur", 0.0))
-        self.hi = float(marks[last]["ts"])
-        self.ops = sorted((str(e.get("name", "")), float(e["ts"]), float(e.get("dur", 0.0))) for e in device
-                          if (e.get("args") or {}).get("correlation") not in (first, last)
-                          and self.lo <= float(e["ts"]) <= self.hi)
-        self.ops.sort(key=lambda o: o[1])
+        self.lo = float(marks[0]["ts"]) + float(marks[0].get("dur", 0.0))
+        self.hi = float(marks[1]["ts"])
+        self.ops = [(str(e.get("name", "")), float(e["ts"]), float(e.get("dur", 0.0))) for e in device
+                    if SPIN not in str(e.get("name", "")) and self.lo <= float(e["ts"]) <= self.hi]
+        self.marks_host = None
+        if not region:
+            ends = {(e.get("args") or {}).get("correlation"): float(e["ts"]) + float(e.get("dur", 0.0))
+                    for e in events if e.get("cat") in HOST_CALLS}
+            got = [ends.get((m.get("args") or {}).get("correlation")) for m in marks]
+            self.marks_host = None if None in got else tuple(got)
         self.convs = _conv_calls(events, start, stop)
-        host_cats = ("cpu_op", "user_annotation") if region else ("cuda_runtime", "cuda_driver")
+        host_cats = ("cpu_op", "user_annotation") if region else HOST_CALLS
         self.host = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), str(e.get("name", "")),
                             e.get("cat")) for e in events
                            if e.get("cat") in host_cats and start <= float(e["ts"]) <= stop
@@ -166,7 +172,7 @@ def _conv_calls(events, start, stop):
             continue
         if e.get("cat") in DEVICE_CATS:
             dev_us[corr] += float(e.get("dur", 0.0))
-        elif e.get("cat") in ("cuda_runtime", "cuda_driver"):
+        elif e.get("cat") in HOST_CALLS:
             launches[(e.get("pid"), e.get("tid"))].append((float(e["ts"]), corr))
     for v in launches.values():
         v.sort()
