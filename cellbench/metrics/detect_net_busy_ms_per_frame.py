@@ -1,0 +1,12 @@
+"""The device's busy time of the kernels the counting step launched inside
+its `detect.net` span (the detector network; a program without the
+`detect.pixels` span also converts the pixels there), per profiled frame,
+in ms: the union of their intervals in the device-only profiled window,
+each kernel matched to its launch call by correlation id
+(`cellbench/launch_spans.py`)."""
+
+from cellbench import launch_spans
+
+
+def read(r):
+    return launch_spans.busy_ms_per_frame(r, "detect.net")

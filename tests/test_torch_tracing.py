@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from vehicle_counting_tpu_torch.models.detector import fused_detect_tail
 from vehicle_counting_tpu_torch.models.reid import init_reid
 from vehicle_counting_tpu_torch.models.yolo import YoloConfig, decode_predictions, init_yolov5, yolov5_forward_nchw
 from vehicle_counting_tpu_torch.ops import nms as nms_mod
@@ -282,6 +283,7 @@ def test_one_cpu_step_has_the_spans_of_its_work(monkeypatch):
 
     monkeypatch.setattr(nms_mod, "greedy_suppress", counted)
     before = len(RECORDER.batches())
+    candidates = fused_detect_tail.candidates
     with torch.no_grad():
         _, det, _ = step_mod.pipeline_batch_step(
             yp, rp, rs, init_states(hp), torch.from_numpy(yuv), torch.ones(B, dtype=torch.bool), lut,
@@ -296,10 +298,15 @@ def test_one_cpu_step_has_the_spans_of_its_work(monkeypatch):
     assert names.count("sync.nms") == sum(calls)
     assert names.count("sync.embed_count") == 1
     assert names.count("embed.chunk") == math.ceil(valid / hp.max_embed)
-    for name in ("step", "detect", "detect.net", "detect.tail", "embed", "track", "track.inputs", "track.scan"):
+    for name in ("step", "detect", "detect.pixels", "detect.net", "detect.tail", "embed", "track", "track.inputs",
+                 "track.scan"):
         assert names.count(name) == 1, name
     assert record.frames == B and names[0] == "step"
     by_name = {s.name: s for s in record.spans}
     assert by_name["detect"].parent is by_name["step"] and by_name["detect.net"].parent is by_name["detect"]
+    assert by_name["detect.pixels"].parent is by_name["detect"]
+    assert by_name["detect.pixels"].end_ns <= by_name["detect.net"].start_ns  # the network alone
+    # every anchor of the three heads at 96x128 (strides 8, 16, 32) enters the tail's top-k
+    assert fused_detect_tail.candidates - candidates == B * ycfg.na * (12 * 16 + 6 * 8 + 3 * 4)
     assert by_name["sync.embed_count"].parent is by_name["embed"]
     assert by_name["track.inputs"].parent is by_name["track"] and by_name["track.scan"].parent is by_name["track"]

@@ -291,31 +291,38 @@ def _c3_params(sd, i: int) -> Dict[str, Any]:
     }
 
 
+# the P5 graph's conv and C3 layers (the JAX package's names; the converter
+# reads each layer's module from the checkpoint's names, P5 or P6)
 CONV_LAYERS = (0, 1, 3, 5, 7, 10, 14, 18, 21)
 C3_LAYERS = (2, 4, 6, 8, 13, 17, 20, 23)
 
 
+def _detect_layer(sd: Dict[str, np.ndarray]) -> int:
+    """The Detect layer's index: the last layer of the checkpoint (24 for
+    P5, 33 for P6)."""
+    return max(int(k.split(".", 1)[0]) for k in sd)
+
+
 def yolov5_state_dict_to_pytree(state_dict: Dict[str, np.ndarray], device=None) -> Dict[str, Any]:
-    """Map an ultralytics v6.0 DetectionModel state dict onto the parameter
-    tree of models/yolo.py (conv+BN folded, weights OIHW, f32 tensors)."""
+    """Map an ultralytics v6.0 DetectionModel state dict, P5 or P6, onto the
+    parameter tree of models/yolo.py (conv+BN folded, weights OIHW, f32
+    tensors). Each layer is the module its names show (a C3 has `cv3`,
+    SPPF `cv1` alone, a Conv `conv`); the last layer is Detect."""
     sd = _strip_prefix(dict(state_dict))
+    d = _detect_layer(sd)
     layers: Dict[str, Any] = {}
-    for i in CONV_LAYERS:
-        layers[str(i)] = _fused_conv(sd, str(i))
-    for i in C3_LAYERS:
-        layers[str(i)] = _c3_params(sd, i)
-    layers["9"] = {"cv1": _fused_conv(sd, "9.cv1"), "cv2": _fused_conv(sd, "9.cv2")}
+    for i in sorted({int(k.split(".", 1)[0]) for k in sd} - {d}):
+        if f"{i}.cv3.conv.weight" in sd:
+            layers[str(i)] = _c3_params(sd, i)
+        elif f"{i}.cv1.conv.weight" in sd:
+            layers[str(i)] = {"cv1": _fused_conv(sd, f"{i}.cv1"), "cv2": _fused_conv(sd, f"{i}.cv2")}
+        else:
+            layers[str(i)] = _fused_conv(sd, str(i))
     heads = []
-    j = 0
-    while f"24.m.{j}.weight" in sd:
-        heads.append(
-            {
-                "w": sd[f"24.m.{j}.weight"].astype(np.float32),
-                "b": sd[f"24.m.{j}.bias"].astype(np.float32),
-            }
-        )
-        j += 1
-    layers["24"] = {"m": heads}
+    while f"{d}.m.{len(heads)}.weight" in sd:
+        j = len(heads)
+        heads.append({"w": sd[f"{d}.m.{j}.weight"].astype(np.float32), "b": sd[f"{d}.m.{j}.bias"].astype(np.float32)})
+    layers[str(d)] = {"m": heads}
     return _to_tensors(layers, device)
 
 
@@ -330,14 +337,17 @@ def load_yolov5_weights(path: str, device=None) -> Dict[str, Any]:
 
 
 def checkpoint_anchors(state_dict: Dict[str, np.ndarray]):
-    """Anchors stored in the ckpt ('24.anchors': [nl, na, 2] per-stride units)."""
+    """Anchors stored in the ckpt ('<detect>.anchors': [nl, na, 2] in units
+    of each scale's stride), in pixels."""
     sd = _strip_prefix(dict(state_dict))
-    if "24.anchors" in sd:
-        anc = sd["24.anchors"]  # per-grid units; multiply by stride for pixels
-        from vehicle_counting_tpu_torch.models.yolo import STRIDES
+    key = f"{_detect_layer(sd)}.anchors"
+    if key in sd:
+        anc = sd[key]  # per-grid units; multiply by stride for pixels
+        from vehicle_counting_tpu_torch.models.yolo import P6_STRIDES, STRIDES
 
+        strides = P6_STRIDES if anc.shape[0] == len(P6_STRIDES) else STRIDES
         return tuple(
-            tuple(tuple(float(v) for v in a) for a in (anc[i] * STRIDES[i]))
+            tuple(tuple(float(v) for v in a) for a in (anc[i] * strides[i]))
             for i in range(anc.shape[0])
         )
     return None

@@ -23,7 +23,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params, init_yolov5, yolov5_forward_nchw
+from vehicle_counting_tpu_torch.models.yolo import (
+    YoloConfig,
+    cast_params,
+    config_for_params,
+    default_config,
+    init_yolov5,
+    yolov5_forward_nchw,
+)
 from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw, letterbox, restore_boxes
 from vehicle_counting_tpu_torch.ops.nms import nms_selected, stable_topk
 
@@ -50,6 +57,8 @@ def fused_detect_tail(heads: Sequence[torch.Tensor], cfg: YoloConfig, *, conf_th
 
     Returns boxes [B, max_det, 4] xyxy in network-input pixels, scores,
     classes (int32, -1 pad) and valid, score-sorted and zero-padded.
+    `fused_detect_tail.candidates` counts the anchors that enter the top-k
+    (B x every anchor of every head), over all calls.
     """
     na, no, nc = cfg.na, cfg.no, cfg.num_classes
     b = heads[0].shape[0]
@@ -57,6 +66,7 @@ def fused_detect_tail(heads: Sequence[torch.Tensor], cfg: YoloConfig, *, conf_th
     shapes = [(h.shape[1], h.shape[2]) for h in heads]
     offs = np.cumsum([0] + [h * w * na for (h, w) in shapes])
     k = min(pre_nms_topk, int(offs[-1]))
+    fused_detect_tail.candidates += b * int(offs[-1])
     lane = torch.arange(nc, device=dev)
 
     scores, rows = [], []
@@ -103,6 +113,9 @@ def fused_detect_tail(heads: Sequence[torch.Tensor], cfg: YoloConfig, *, conf_th
     return nms_selected(bx_k, top_sc, cl_k, valid, iou_threshold=iou_thres, max_det=max_det)
 
 
+fused_detect_tail.candidates = 0
+
+
 def detect_step(params, frames: torch.Tensor, *, cfg: YoloConfig, image_size: Tuple[int, int],
                 src_hw: Tuple[int, int], conf_thres: float = 0.25, iou_thres: float = 0.45,
                 max_det: int = 300, dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
@@ -142,12 +155,12 @@ class Detector:
             from vehicle_counting_tpu_torch.models.convert import load_yolov5_weights
 
             params = load_yolov5_weights(weights, self.device)
-            nc = params["24"]["m"][0]["b"].shape[0] // 3 - 5
+            self.cfg = config_for_params(variant, params)
+            nc = self.cfg.num_classes
         else:
             nc = num_classes if num_classes is not None else 80
-            params = init_yolov5(torch.Generator().manual_seed(seed), YoloConfig(variant=variant, num_classes=nc),
-                                 self.device)
-        self.cfg = YoloConfig(variant=variant, num_classes=nc)
+            self.cfg = default_config(variant, nc)
+            params = init_yolov5(torch.Generator().manual_seed(seed), self.cfg, self.device)
         self.params = cast_params(params, self.dtype)
         self._map_lut = None
         if self.mapping_dict:
@@ -156,10 +169,11 @@ class Detector:
                 self._map_lut[src] = dst
 
     def net_hw(self, src_hw: Tuple[int, int]) -> Tuple[int, int]:
-        """Network input shape for a source shape (AutoShape rule)."""
+        """Network input shape for a source shape (AutoShape rule, to the
+        configuration's largest stride)."""
         if self.square_letterbox:
             return self.image_size
-        return autoshape_hw(src_hw, self.image_size)
+        return autoshape_hw(src_hw, self.image_size, stride=max(self.cfg.strides))
 
     def detect_batch(self, frames: np.ndarray) -> Dict[str, np.ndarray]:
         """frames [B, H, W, 3] uint8 RGB -> fixed-shape numpy detections."""

@@ -1,12 +1,18 @@
 """YOLOv5 (v6.0 graph) in PyTorch: CSPDarknet backbone, SPPF, PANet neck and
-the 3-scale Detect head, with the n/s/m/l/x depth/width multiples.
+the Detect head, with the n/s/m/l/x depth/width multiples, in two graphs:
+P5 (three Detect scales at strides 8/16/32, `yolov5s.yaml`) and P6 (four
+at 8/16/32/64, `hub/yolov5s6.yaml`: a 768-wide stride-32 stage before the
+1024-wide stride-64 one, and one more step up and down the neck).
 
-Port of `vehicle_counting_tpu/models/yolo.py`. Params are a plain dict
-keyed by the canonical layer index ("0".."24"), conv+BN already folded, in
-OIHW layout (`models/convert.py::yolo_params_from_jax` carries the JAX
-pytree across). `yolov5_forward` keeps the JAX layout (NHWC images in,
-NHWC heads out); `yolov5_forward_nchw` is what the pipeline runs on its
-planar pixels.
+Port of `vehicle_counting_tpu/models/yolo.py`, which has the P5 graph
+alone. Params are a plain dict keyed by ultralytics' layer index ("0".."24"
+for P5, "0".."33" for P6, the Detect layer last), conv+BN already folded,
+in OIHW layout (`models/convert.py::yolo_params_from_jax` carries the JAX
+pytree across). The graph is the number of scales: `len(cfg.strides)` when
+building, the Detect layer's head count when running. `default_config`
+gives a variant its own anchors and strides. `yolov5_forward` keeps the JAX
+layout (NHWC images in, NHWC heads out); `yolov5_forward_nchw` is what the
+pipeline runs on its planar pixels.
 """
 
 from __future__ import annotations
@@ -24,13 +30,19 @@ from vehicle_counting_tpu_torch.models.layers import (
     upsample2x_nearest_nchw,
 )
 
-# depth_multiple, width_multiple per variant (public yolov5 model family)
+# depth_multiple, width_multiple per variant (public yolov5 model family);
+# a P6 variant (name ending in 6) takes its P5 sibling's multiples
 VARIANTS: Dict[str, Tuple[float, float]] = {
     "yolov5n": (0.33, 0.25),
     "yolov5s": (0.33, 0.50),
     "yolov5m": (0.67, 0.75),
     "yolov5l": (1.00, 1.00),
     "yolov5x": (1.33, 1.25),
+    "yolov5n6": (0.33, 0.25),
+    "yolov5s6": (0.33, 0.50),
+    "yolov5m6": (0.67, 0.75),
+    "yolov5l6": (1.00, 1.00),
+    "yolov5x6": (1.33, 1.25),
 }
 
 # COCO anchors (pixels) per detection scale P3/P4/P5
@@ -40,6 +52,21 @@ DEFAULT_ANCHORS: Tuple[Tuple[Tuple[float, float], ...], ...] = (
     ((116, 90), (156, 198), (373, 326)),
 )
 STRIDES = (8, 16, 32)
+# the P6 models' COCO anchors per scale P3/P4/P5/P6 (v6.0 hub/yolov5s6.yaml)
+P6_ANCHORS: Tuple[Tuple[Tuple[float, float], ...], ...] = (
+    ((19, 27), (44, 40), (38, 94)),
+    ((96, 68), (86, 152), (180, 137)),
+    ((140, 301), (303, 264), (238, 542)),
+    ((436, 615), (739, 380), (925, 792)),
+)
+P6_STRIDES = (8, 16, 32, 64)
+
+# per number of Detect scales: the backbone's stage widths (before the width
+# multiple; the last stage feeds SPPF) and each stage's C3 depth
+_STAGES = {
+    3: ((128, 256, 512, 1024), (3, 6, 9, 3)),
+    4: ((128, 256, 512, 768, 1024), (3, 6, 9, 3, 3)),
+}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -76,6 +103,23 @@ class YoloConfig:
         return self.num_classes + 5
 
 
+def default_config(variant: str = "yolov5s", num_classes: int = 80) -> YoloConfig:
+    """`variant`'s config with its own default anchors and strides: four
+    scales for a P6 variant (`yolov5s6`), three otherwise. Raises KeyError
+    for a name `VARIANTS` does not hold."""
+    if variant not in VARIANTS:
+        raise KeyError(variant)
+    if variant.endswith("6"):
+        return YoloConfig(variant, num_classes, P6_ANCHORS, P6_STRIDES)
+    return YoloConfig(variant, num_classes)
+
+
+def _stages(n_scales: int):
+    if n_scales not in _STAGES:
+        raise ValueError(f"a YOLOv5 v6.0 graph has 3 (P5) or 4 (P6) Detect scales, not {n_scales}")
+    return _STAGES[n_scales]
+
+
 def _init_c3(gen, cin: int, cout: int, n: int, device, e: float = 0.5) -> Dict[str, Any]:
     ch = int(cout * e)
     return {
@@ -91,31 +135,52 @@ def _init_c3(gen, cin: int, cout: int, n: int, device, e: float = 0.5) -> Dict[s
 
 
 def init_yolov5(gen: torch.Generator, cfg: YoloConfig, device=None) -> Dict[str, Any]:
-    """Random-init full param dict (layer index -> module params)."""
+    """Random-init full param dict (layer index -> module params), drawn in
+    layer order; the graph has `len(cfg.strides)` Detect scales."""
     w, d = cfg.width, cfg.depth
-    c64, c128, c256, c512, c1024 = w(64), w(128), w(256), w(512), w(1024)
+    widths, depths = _stages(len(cfg.strides))
     L: Dict[str, Any] = {}
-    L["0"] = init_conv(gen, 6, 3, c64, device=device)        # P1/2
-    L["1"] = init_conv(gen, 3, c64, c128, device=device)     # P2/4
-    L["2"] = _init_c3(gen, c128, c128, d(3), device)
-    L["3"] = init_conv(gen, 3, c128, c256, device=device)    # P3/8
-    L["4"] = _init_c3(gen, c256, c256, d(6), device)
-    L["5"] = init_conv(gen, 3, c256, c512, device=device)    # P4/16
-    L["6"] = _init_c3(gen, c512, c512, d(9), device)
-    L["7"] = init_conv(gen, 3, c512, c1024, device=device)   # P5/32
-    L["8"] = _init_c3(gen, c1024, c1024, d(3), device)
-    L["9"] = {"cv1": init_conv(gen, 1, c1024, c1024 // 2, device=device),  # SPPF
-              "cv2": init_conv(gen, 1, c1024 // 2 * 4, c1024, device=device)}
-    L["10"] = init_conv(gen, 1, c1024, c512, device=device)
-    L["13"] = _init_c3(gen, c1024, c512, d(3), device)
-    L["14"] = init_conv(gen, 1, c512, c256, device=device)
-    L["17"] = _init_c3(gen, c512, c256, d(3), device)
-    L["18"] = init_conv(gen, 3, c256, c256, device=device)
-    L["20"] = _init_c3(gen, c512, c512, d(3), device)
-    L["21"] = init_conv(gen, 3, c512, c512, device=device)
-    L["23"] = _init_c3(gen, c1024, c1024, d(3), device)
-    L["24"] = {"m": [init_conv(gen, 1, c, cfg.na * cfg.no, device=device) for c in (c256, c512, c1024)]}
+    L["0"] = init_conv(gen, 6, 3, w(64), device=device)  # P1/2
+    c = w(64)
+    for i, (ci, n) in enumerate(zip(widths, depths)):  # P2/4 .. the last stage
+        L[str(1 + 2 * i)] = init_conv(gen, 3, c, w(ci), device=device)
+        c = w(ci)
+        L[str(2 + 2 * i)] = _init_c3(gen, c, c, d(n), device)
+    k = 2 * len(widths) + 1
+    L[str(k)] = {"cv1": init_conv(gen, 1, c, c // 2, device=device),  # SPPF
+                 "cv2": init_conv(gen, 1, c // 2 * 4, c, device=device)}
+    k += 1
+    levels = [w(ci) for ci in widths[1:-1]]  # the backbone outputs the neck takes, stride 8 up
+    for cl in reversed(levels):  # up: lateral conv, upsample, concat, C3
+        L[str(k)] = init_conv(gen, 1, c, cl, device=device)
+        L[str(k + 3)] = _init_c3(gen, 2 * cl, cl, d(3), device)
+        c, k = cl, k + 4
+    heads = [c]
+    for cl, cout in zip(levels, [w(ci) for ci in widths[2:]]):  # down: conv, concat, C3
+        L[str(k)] = init_conv(gen, 3, c, c, device=device)
+        L[str(k + 2)] = _init_c3(gen, c + cl, cout, d(3), device)
+        c, k = cout, k + 3
+        heads.append(c)
+    L[str(k)] = {"m": [init_conv(gen, 1, ch, cfg.na * cfg.no, device=device) for ch in heads]}
     return L
+
+
+def detect_key(params) -> str:
+    """The Detect layer's key: the last layer ("24" for P5, "33" for P6)."""
+    return str(max(int(k) for k in params))
+
+
+def config_for_params(variant: str, params) -> YoloConfig:
+    """`variant`'s default config with the class count of loaded `params`.
+    Raises ValueError when the params have another number of Detect scales
+    than the variant (a P6 checkpoint under a P5 name, or the reverse)."""
+    heads = params[detect_key(params)]["m"]
+    cfg = default_config(variant, heads[0]["b"].shape[0] // 3 - 5)
+    if len(heads) != len(cfg.strides):
+        raise ValueError(f"the weights have {len(heads)} Detect scales, but {variant} has "
+                         f"{len(cfg.strides)}: name the model the weights are (e.g. "
+                         f"{'yolov5s6' if len(heads) == 4 else 'yolov5s'})")
+    return cfg
 
 
 def cast_params(tree, dtype: torch.dtype):
@@ -146,34 +211,42 @@ def _sppf(p, x):
 
 def yolov5_forward_nchw(params, images: torch.Tensor) -> List[torch.Tensor]:
     """images [B, 3, H, W] in [0, 1] -> raw heads [B, na*no, Hs, Ws] per
-    scale, in the params' dtype."""
+    scale, in the params' dtype. The graph is the Detect layer's head
+    count; H and W must be multiples of the last stride (32 for P5, 64
+    for P6)."""
     L = params
+    head = detect_key(L)
+    n_stages = len(_stages(len(L[head]["m"]))[0])
     x = conv_block_nchw(L["0"], images, stride=2, padding=2)
-    x = conv_block_nchw(L["1"], x, stride=2)
-    x = _c3(L["2"], x, shortcut=True)
-    x = conv_block_nchw(L["3"], x, stride=2)
-    p3 = _c3(L["4"], x, shortcut=True)
-    x = conv_block_nchw(L["5"], p3, stride=2)
-    p4 = _c3(L["6"], x, shortcut=True)
-    x = conv_block_nchw(L["7"], p4, stride=2)
-    x = _c3(L["8"], x, shortcut=True)
-    p5 = _sppf(L["9"], x)
-    t10 = conv_block_nchw(L["10"], p5)
-    x = _c3(L["13"], torch.cat([upsample2x_nearest_nchw(t10), p4], dim=1), shortcut=False)
-    t14 = conv_block_nchw(L["14"], x)
-    o3 = _c3(L["17"], torch.cat([upsample2x_nearest_nchw(t14), p3], dim=1), shortcut=False)
-    x = conv_block_nchw(L["18"], o3, stride=2)
-    o4 = _c3(L["20"], torch.cat([x, t14], dim=1), shortcut=False)
-    x = conv_block_nchw(L["21"], o4, stride=2)
-    o5 = _c3(L["23"], torch.cat([x, t10], dim=1), shortcut=False)
-    return [conv_block_nchw(m, o, act=False) for m, o in zip(L["24"]["m"], (o3, o4, o5))]
+    levels = []  # the backbone outputs the neck takes, stride 8 up
+    for i in range(n_stages):
+        x = conv_block_nchw(L[str(1 + 2 * i)], x, stride=2)
+        x = _c3(L[str(2 + 2 * i)], x, shortcut=True)
+        if 0 < i < n_stages - 1:
+            levels.append(x)
+    k = 2 * n_stages + 1
+    x = _sppf(L[str(k)], x)
+    k += 1
+    laterals = []
+    for feat in reversed(levels):  # up
+        t = conv_block_nchw(L[str(k)], x)
+        laterals.append(t)
+        x = _c3(L[str(k + 3)], torch.cat([upsample2x_nearest_nchw(t), feat], dim=1), shortcut=False)
+        k += 4
+    outs = [x]
+    for t in reversed(laterals):  # down
+        x = conv_block_nchw(L[str(k)], x, stride=2)
+        x = _c3(L[str(k + 2)], torch.cat([x, t], dim=1), shortcut=False)
+        outs.append(x)
+        k += 3
+    return [conv_block_nchw(m, o, act=False) for m, o in zip(L[head]["m"], outs)]
 
 
 def _check_params(params, cfg: YoloConfig) -> None:
-    """Raise unless `params` are a `cfg` network: the stem's width and the
-    three heads' na * no channels."""
+    """Raise unless `params` are a `cfg` network: the stem's width and one
+    head of na * no channels per stride."""
     stem = params["0"]["w"].shape[0]
-    heads = [m["w"].shape[0] for m in params["24"]["m"]]
+    heads = [m["w"].shape[0] for m in params[detect_key(params)]["m"]]
     if stem != cfg.width(64) or heads != [cfg.na * cfg.no] * len(cfg.strides):
         raise ValueError(f"params (stem {stem} channels, heads {heads}) are not a {cfg.variant} with "
                          f"{cfg.num_classes} classes (stem {cfg.width(64)}, heads {cfg.na * cfg.no} each)")

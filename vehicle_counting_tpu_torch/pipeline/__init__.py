@@ -95,7 +95,8 @@ class CountingPipeline:
 
     def __init__(self, args, config: Optional[Config] = None, cam_config: Optional[Config] = None, mesh=None):
         from vehicle_counting_tpu_torch.models.reid import cast_conv_weights, init_reid, load_reid_weights
-        from vehicle_counting_tpu_torch.models.yolo import YoloConfig, cast_params, init_yolov5
+        from vehicle_counting_tpu_torch.models.yolo import cast_params, config_for_params, init_yolov5
+        from vehicle_counting_tpu_torch.models.yolo import default_config as yolo_default_config
 
         self.config = config or default_config()
         self.cam_config = cam_config or default_cam_config()
@@ -125,12 +126,12 @@ class CountingPipeline:
             from vehicle_counting_tpu_torch.models.convert import load_yolov5_weights
 
             yolo_params = load_yolov5_weights(weight, self.device)
-            nc = yolo_params["24"]["m"][0]["b"].shape[0] // 3 - 5
-            self.ycfg = YoloConfig(variant=variant, num_classes=nc)
+            self.ycfg = config_for_params(variant, yolo_params)
+            nc = self.ycfg.num_classes
         else:
             nc = 80
             print("[pipeline] no weights available; using a random-init detector (seed 0)")
-            self.ycfg = YoloConfig(variant=variant, num_classes=nc)
+            self.ycfg = yolo_default_config(variant, nc)
             yolo_params = init_yolov5(torch.Generator().manual_seed(0), self.ycfg, self.device)
         self.yolo_params = cast_params(yolo_params, self.dtype)
 
@@ -178,12 +179,13 @@ class CountingPipeline:
         return os.path.basename(path)[:-4]  # modules/__init__.py:23-26
 
     def net_hw(self, src_hw):
-        """Detector input shape for a video's source shape (AutoShape rule)."""
+        """Detector input shape for a video's source shape (AutoShape rule,
+        to the detector's largest stride)."""
         from vehicle_counting_tpu_torch.ops.letterbox import autoshape_hw
 
         if self.square_letterbox:
             return self.image_size
-        return autoshape_hw(src_hw, self.image_size)
+        return autoshape_hw(src_hw, self.image_size, stride=max(self.ycfg.strides))
 
     def _cam_params(self, cam_name: str):
         from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams

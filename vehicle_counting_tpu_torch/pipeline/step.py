@@ -115,7 +115,7 @@ def _net_input(rgb_u8, dtype):
 
 
 def _heads(yolo_params, imgs):
-    """YOLOv5 on NCHW images -> its three NHWC heads."""
+    """YOLOv5 on NCHW images -> its NHWC heads, one per scale."""
     return [h.permute(0, 2, 3, 1) for h in yolov5_forward_nchw(yolo_params, imgs)]
 
 
@@ -153,10 +153,11 @@ def detect_front(yolo_params, frames, frame_valid, class_lut, *, ycfg: YoloConfi
     (`embed_front`): the planar RGB of the I420 upload, or the uploaded
     frames themselves (the letterbox, through the gain/pad transform, or
     the raw frames at source resolution). Spans: `detect`, inside it
-    `detect.net` (pixels and the network) and `detect.tail`."""
+    `detect.pixels` (the upload to the network's input), `detect.net`
+    (the network) and `detect.tail`."""
     with span("detect"):
         planar, crop_gain, crop_pad = True, 1.0, (0.0, 0.0)
-        with span("detect.net"):
+        with span("detect.pixels"):
             if frames_format == "raw_rgb":
                 imgs = letterbox(frames, image_size).to(dtype).permute(0, 3, 1, 2).contiguous()
                 crop_source, planar = frames, False
@@ -171,6 +172,7 @@ def detect_front(yolo_params, frames, frame_valid, class_lut, *, ycfg: YoloConfi
                     raise ValueError(f"unknown frames_format: {frames_format!r}")
                 gain, pad_x, pad_y, _, _ = letterbox_params(src_hw, image_size)
                 crop_gain, crop_pad = float(gain), (float(pad_x), float(pad_y))
+        with span("detect.net"):
             heads = _heads(yolo_params, imgs)
         with span("detect.tail"):
             det = _tail(heads, ycfg, src_hw, image_size, conf_thres, iou_thres, max_det)

@@ -240,14 +240,16 @@ def crop_boxes(rng: np.random.Generator, d: int, h: int, w: int) -> np.ndarray:
 def fake_yolov5_state_dict(rng: np.random.Generator, variant: str = "yolov5s",
                            num_classes: int = 80) -> Dict[str, np.ndarray]:
     """A state dict named and shaped like an ultralytics v6.0 yolov5
-    checkpoint's (`model.<i>.conv.weight`, `.bn.*`, `model.24.m.<j>.*`,
-    `model.24.anchors`), with seeded weights and non-trivial BN statistics."""
+    checkpoint's (`model.<i>.conv.weight`, `.bn.*`, the Detect layer's
+    `model.<d>.m.<j>.*` and `model.<d>.anchors`, d = 24 for P5 and 33 for a
+    P6 variant), with seeded weights and non-trivial BN statistics."""
     import torch
 
-    from vehicle_counting_tpu_torch.models.yolo import STRIDES, YoloConfig, init_yolov5
+    from vehicle_counting_tpu_torch.models.yolo import default_config, detect_key, init_yolov5
 
-    cfg = YoloConfig(variant=variant, num_classes=num_classes)
+    cfg = default_config(variant, num_classes)
     tree = init_yolov5(torch.Generator().manual_seed(0), cfg)
+    head = detect_key(tree) + "."
     sd: Dict[str, np.ndarray] = {}
 
     def visit(node, path):
@@ -257,7 +259,7 @@ def fake_yolov5_state_dict(rng: np.random.Generator, variant: str = "yolov5s",
         elif "w" in node:
             cout, cin, kh, kw = node["w"].shape
             w = (rng.standard_normal((cout, cin, kh, kw)) * np.sqrt(2.0 / (cin * kh * kw))).astype(np.float32)
-            if path.startswith("24."):
+            if path.startswith(head):
                 sd[f"model.{path}.weight"] = w
                 sd[f"model.{path}.bias"] = rng.normal(0, 0.1, cout).astype(np.float32)
                 return
@@ -272,7 +274,7 @@ def fake_yolov5_state_dict(rng: np.random.Generator, variant: str = "yolov5s",
 
     visit(tree, "")
     anchors = np.asarray(cfg.anchors, np.float32)  # [nl, na, 2] pixels
-    sd["model.24.anchors"] = anchors / np.asarray(STRIDES, np.float32)[:, None, None]
+    sd[f"model.{head}anchors"] = anchors / np.asarray(cfg.strides, np.float32)[:, None, None]
     return sd
 
 

@@ -29,6 +29,15 @@ WEIGHT_URLS = {
     "yolov5l": "https://github.com/ultralytics/yolov5/releases/download/v6.0/yolov5l.pt",
     "yolov5x": "https://github.com/ultralytics/yolov5/releases/download/v6.0/yolov5x.pt",
 }
+# the same release's P6 checkpoints (four Detect scales), which the JAX
+# package does not run
+P6_WEIGHT_URLS = {
+    "yolov5n6": "https://github.com/ultralytics/yolov5/releases/download/v6.0/yolov5n6.pt",
+    "yolov5s6": "https://github.com/ultralytics/yolov5/releases/download/v6.0/yolov5s6.pt",
+    "yolov5m6": "https://github.com/ultralytics/yolov5/releases/download/v6.0/yolov5m6.pt",
+    "yolov5l6": "https://github.com/ultralytics/yolov5/releases/download/v6.0/yolov5l6.pt",
+    "yolov5x6": "https://github.com/ultralytics/yolov5/releases/download/v6.0/yolov5x6.pt",
+}
 FETCH_TIMEOUT_S = 30.0  # per socket operation: the connect, then each read
 
 
@@ -54,13 +63,14 @@ def download_pretrained_weights(name: str, cached: Optional[str] = None) -> Opti
     Returns None (with a warning that says how long the attempt took) when
     the environment has no egress.
     """
-    if name not in WEIGHT_URLS:
-        raise ValueError(f"unknown model {name!r}; choose from {sorted(WEIGHT_URLS)}")
+    urls = {**WEIGHT_URLS, **P6_WEIGHT_URLS}
+    if name not in urls:
+        raise ValueError(f"unknown model {name!r}; choose from {sorted(urls)}")
     cached = cached or os.path.join(".cache", f"{name}.pt")
     if os.path.exists(cached):
         return cached
     os.makedirs(os.path.dirname(cached) or ".", exist_ok=True)
-    url = WEIGHT_URLS[name]
+    url = urls[name]
     t0 = time.perf_counter()
     try:
         _fetch(url, cached)
