@@ -191,7 +191,7 @@ SRC_HW = (720, 1280)
 N_FRAMES = 256
 N_SWITCHED = 128
 VARIANT = "yolov5s"
-KERNELS = ("crops", "cascade", "assignment", "reid_block", "conv_s2", "noop", "reid_epilogue")
+KERNELS = ("crops", "cascade", "assignment", "reid_block", "conv_s2", "noop", "reid_epilogue", "track_frame")
 MC_FRAMES = (128, 128, 128, 96)  # the multi-camera CLI's videos
 MC_K2_CAMS = 8  # cameras of K2's camera-axis check: C = 4 x 8 blocks
 FP_B = 8  # frames per batch of the frame-parallel checks (f32)
@@ -1416,7 +1416,7 @@ def kernel_counters():
     """{kernel: [wrappers that launch it]} of the step's kernels. K2
     ("cascade", all classes in one launch) and its per-class entry K3
     ("cascade_k3", the scan mode's association) are counted apart."""
-    from vehicle_counting_tpu_torch.ops import assignment, cascade, crops, reid_block, reid_epilogue
+    from vehicle_counting_tpu_torch.ops import assignment, cascade, crops, reid_block, reid_epilogue, track_frame
 
     return {
         "crops": [crops.gather_crops_batch],
@@ -1426,6 +1426,8 @@ def kernel_counters():
         "match_stage": [assignment.match_stage_batched],
         "reid_block": [reid_block.reid_block64],
         "reid_epilogue": [reid_epilogue.reid_epilogue],
+        "track_pre": [track_frame.track_frame_pre],
+        "track_post": [track_frame.track_frame_post],
     }
 
 
@@ -1714,15 +1716,143 @@ def check_parity(dev, path):
     return t
 
 
+UPDATE_LEAVES = ("mean", "cov")  # through kalman.update's contractions (and the gate's sum upstream)
+
+
+@contextlib.contextmanager
+def op_chain(on=True):
+    """With `on`, the frame step runs K9's and K10's plain versions, the op
+    chain, in the kernels' place on the card: the kernels' yardstick."""
+    from vehicle_counting_tpu_torch.ops import track_frame as tf
+    from vehicle_counting_tpu_torch.tracking import deepsort
+
+    old = deepsort.track_frame_pre, deepsort.track_frame_post
+    if on:
+        deepsort.track_frame_pre, deepsort.track_frame_post = tf.track_frame_pre_plain, tf.track_frame_post_plain
+    try:
+        yield
+    finally:
+        deepsort.track_frame_pre, deepsort.track_frame_post = old
+
+
+def kernels_vs_chain(got, want, what, rtol=1e-5):
+    """K9 + K10 against the op chain, batch by batch (lists of (state,
+    outputs)): every integer leaf, the gallery and boxes / ids / mask equal;
+    last_conf and scores equal; mean and cov equal or within `rtol`
+    relative (|a - b| <= rtol * |b|, zeros exact). Returns what differed."""
+    import torch
+
+    worst, differing, total = {}, {}, {}
+    for i, ((st_g, out_g), (st_w, out_w)) in enumerate(zip(got, want)):
+        for name, g, w in zip(st_w._fields + out_w._fields, tuple(st_g) + tuple(out_g), tuple(st_w) + tuple(out_w)):
+            if name in UPDATE_LEAVES:
+                diff = (g - w).abs()
+                rel = float((diff / w.abs().clamp(min=1e-30)).max()) if bool((diff > 0).any()) else 0.0
+                worst[name] = max(worst.get(name, 0.0), rel)
+                differing[name] = differing.get(name, 0) + int((g != w).sum())
+                total[name] = total.get(name, 0) + g.numel()
+                if not bool((diff <= rtol * w.abs()).all()):
+                    raise AssertionError(f"{what}, batch {i}: {name} beyond {rtol} relative of the op chain "
+                                         f"(worst {rel:.3g})")
+            elif not torch.equal(g, w):
+                raise AssertionError(f"{what}, batch {i}: {name} differs from the op chain")
+    return {"bitwise_except": {n: f"{differing[n]} of {total[n]}" for n in UPDATE_LEAVES if differing.get(n)},
+            "worst_rel": {n: worst[n] for n in UPDATE_LEAVES}}
+
+
+def track_frame_bytes(st, sims_rows, written, gallery_bytes):
+    """Bytes K9 and K10 need for one frame (each input read once, each
+    output written once), from the state's shapes: K9 reads the slots'
+    state and the detections, the similarities of the ring rows below
+    each slot's count (`sims_rows` rows of K) and writes the prediction
+    and the association's operands; K10 reads the prediction or the old
+    mean / covariance, the slots' scalars, the detections and the
+    association's outcome and the features of the `written` ring rows,
+    and writes the state, the outputs and those rows."""
+    c, k = st.state.shape
+    f = st.gallery.shape[-1]
+    slots = c * k
+    k9 = slots * (72 + 4) * 4 + slots * (16 + 1) + sims_rows * k * 4 + slots * (72 * 4 + 2 * k * 4 + 9)
+    k10 = (slots * (72 * 4 + 8 * 4) + slots * (16 + 4 + 1 + 1 + 4 + 4) + written * f * 4
+           + slots * (72 * 4 + 8 * 4) + slots * (16 + 4 + 4 + 1) + written * f * gallery_bytes)
+    return k9, k10
+
+
+def check_track_frame(dev, reps=200):
+    """K9 and K10 at the cells' shapes (C = 4, K = 64, budget 60, F = 512,
+    bf16 gallery) on three random states (`testing.tracker_frame_case`,
+    the last crowded past its free slots): each bitwise against its plain
+    version, K10 on the plain association's outcome; then, on the last
+    state, the wrapper's ms (CUDA events over `reps` calls) against the
+    plain version's, one call's device time from the card's trace, and
+    the bytes bound at 3.35 TB/s (`track_frame_bytes`)."""
+    import torch
+
+    from vehicle_counting_tpu_torch.ops import track_frame as tf
+    from vehicle_counting_tpu_torch.testing import tracker_frame_case
+    from vehicle_counting_tpu_torch.tracking import tracker as trk
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerState
+
+    def clone(st):
+        return TrackerState(*(t.clone() for t in st))
+
+    for seed in range(3):
+        hp, st, inp, (h, w) = tracker_frame_case(np.random.default_rng(SEED + 90 + seed), 4, 64, budget=60, feat=512,
+                                                 gallery_dtype="bfloat16", crowded=seed == 2, device=dev)
+        tp = hp.tracker
+        f_n = trk.l2_normalize(inp.feats)
+        sims = trk.gallery_sims(st.gallery, f_n)
+        pre = tf.track_frame_pre_plain(st, inp.tlwh, inp.valid, sims, tp)
+        for name, a, b in zip(pre._fields, tf.track_frame_pre(st, inp.tlwh, inp.valid, sims, tp), pre):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K9, seed {seed}: {name} differs from the plain version")
+        assoc = trk._associate(pre.gated, pre.iou_cost, pre.lvl_of, pre.tentative, st.track_id, pre.iou_order,
+                               inp.valid, inp.order, tp)
+        post_args = (pre, inp.tlwh, inp.scores, inp.valid, inp.present, f_n, *assoc, tp, w, h)
+        got_st, got_out = tf.track_frame_post(clone(st), *post_args)
+        want_st, want_out = tf.track_frame_post_plain(clone(st), *post_args)
+        for name, a, b in zip(want_st._fields + want_out._fields, tuple(got_st) + tuple(got_out),
+                              tuple(want_st) + tuple(want_out)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K10, seed {seed}: {name} differs from the plain version")
+    torch.cuda.synchronize()
+    sims_rows = int(torch.clamp(st.gallery_count, max=tp.budget).sum())
+    written = int((((assoc[1] >= 0) | (want_st.track_id >= st.next_id[:, None])) & inp.present[:, None]).sum())
+    scratch = clone(st)
+    calls = {"K9": (lambda: tf.track_frame_pre(st, inp.tlwh, inp.valid, sims, tp),
+                    lambda: tf.track_frame_pre_plain(st, inp.tlwh, inp.valid, sims, tp), "track_pre_kernel"),
+             "K10": (lambda: tf.track_frame_post(scratch, *post_args),
+                     lambda: tf.track_frame_post_plain(scratch, *post_args), "track_post_kernel")}
+    bytes_ = dict(zip(("K9", "K10"), track_frame_bytes(st, sims_rows, written, 2)))
+    res = {}
+    for name, (kern, plain, kname) in calls.items():
+        ms = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            ms[which].append(cuda_ms(kern if which == "kernel" else plain, reps))
+        ev = device_events(kern)
+        dev_ms = sum(t for n, t in ev if kname in n)
+        bound_ms = bytes_[name] / HBM_BPS * 1e3
+        res[name] = {"ms": ms["kernel"], "plain_ms": ms["plain"], "device_ms": dev_ms, "device_kernels": len(ev),
+                     "bytes": bytes_[name], "bound_ms": bound_ms, "bound_share": 100 * bound_ms / dev_ms}
+        if len(ev) != 1:
+            raise AssertionError(f"{name}: one call shows {len(ev)} device kernels: {ev}")
+    print(f"K9 / K10 at C=4, K=64, budget 60, F=512, bf16 gallery: bitwise their plain versions on 3 states; "
+          f"{sims_rows} ring rows below the counts, {written} rows written; {json.dumps(res)}")
+    return res
+
+
 def check_frame_graph(dev, path, conf, mapping):
     """The frame scan replayed from its CUDA graph against the eager loop,
     on the card, over the 256-frame smoke video (the CLI's default config:
     bf16, B=128, the calibrated threshold and class map), on both
     association routes: every `TrackerState` leaf and every output
     bitwise-equal after each batch; the two routes equal on the discrete
-    outputs. Then the tracker A/B: `tracker_scan` on the second batch
-    (B=128, the state warmed by the first: steady state), graph off / on /
-    on / off, ms/frame. Returns the A/B times and the launch counts."""
+    outputs; the frame graph's K9 + K10 against the op chain run eagerly on
+    the card (`kernels_vs_chain`); one replay's device kernels from the
+    card's trace (<= 12 on the K2 route) against the runner's counts. Then
+    the tracker A/B: `tracker_scan` on the second batch (B=128, the state
+    warmed by the first: steady state), graph off / on / on / off,
+    ms/frame. Returns the A/B times and the launch counts."""
     import torch
 
     from vehicle_counting_tpu_torch.models.detector import class_lut
@@ -1754,24 +1884,24 @@ def check_frame_graph(dev, path, conf, mapping):
                 frames_format="letterboxed_yuv420"))
     del frames
 
-    def scan(states, det, feats, graph, staged):
+    def scan(states, det, feats, graph, staged, chain=False):
         old = step_mod.USE_FRAME_GRAPH, tracker.FORCE_PALLAS_CASCADE
         step_mod.USE_FRAME_GRAPH = None if graph else False
         tracker.FORCE_PALLAS_CASCADE = False if staged else old[1]
         try:
-            with torch.no_grad():
+            with torch.no_grad(), op_chain(chain):
                 return step_mod.tracker_scan(states, det, feats, hp=hp, src_hw=SRC_HW)
         finally:
             step_mod.USE_FRAME_GRAPH, tracker.FORCE_PALLAS_CASCADE = old
 
     counters = kernel_counters()
-    runs, launches = {}, {}
+    runs, launches, against_chain = {}, {}, {}
     for staged in (False, True):
-        for graph in (False, True):
+        for graph in (False, True, "chain"):
             zero_counts(counters)
             states, per_batch = init_states(hp, dev), []
             for det, feats in batches:
-                states, outs = scan(states, det, feats, graph, staged)
+                states, outs = scan(states, det, feats, graph is True, staged, chain=graph == "chain")
                 per_batch.append((TrackerState(*(t.clone() for t in states)), outs))
             torch.cuda.synchronize()
             runs[staged, graph] = per_batch
@@ -1783,6 +1913,8 @@ def check_frame_graph(dev, path, conf, mapping):
                                          f"batch {i}: {name} differs")
         if launches[staged, False] != launches[staged, True]:
             raise AssertionError(f"launch counts differ, eager {launches[staged, False]} vs graph {launches[staged, True]}")
+        against_chain["staged" if staged else "k2"] = kernels_vs_chain(
+            runs[staged, True], runs[staged, "chain"], f"frame graph on the {'staged' if staged else 'K2'} route")
     for (st_k, out_k), (st_s, out_s) in zip(runs[False, True], runs[True, True]):
         for name in ("ids", "mask", "boxes"):
             if not torch.equal(getattr(out_k, name), getattr(out_s, name)):
@@ -1790,7 +1922,9 @@ def check_frame_graph(dev, path, conf, mapping):
     n_out = sum(int(o.mask.sum()) for _, o in runs[False, True])
     k2_l, st_l = launches[False, True], launches[True, True]
     if (k2_l["cascade"] != N_FRAMES or k2_l["match_stage"] or st_l["cascade"] or st_l["match_stage"] != 31 * N_FRAMES
-            or k2_l["insert_rows"] or st_l["insert_rows"]):
+            or k2_l["insert_rows"] or st_l["insert_rows"]
+            or any(l[n] != N_FRAMES for l in (k2_l, st_l) for n in ("track_pre", "track_post"))
+            or any(launches[r, "chain"][n] for r in (False, True) for n in ("track_pre", "track_post"))):
         raise AssertionError(f"frame graph launch counts over {N_FRAMES} frames: K2 route {k2_l}, staged route {st_l}")
     # what one replay really launches, read from the card's trace, against
     # what the runner adds to the wrappers' counts per replay
@@ -1805,22 +1939,35 @@ def check_frame_graph(dev, path, conf, mapping):
         events = device_events(runner._step)
         seen = {"cascade": sum("cascade_kernel" in name for name, _ in events),
                 "match_stage": sum("match_stage_kernel" in name for name, _ in events),
-                "insert_rows": sum("insert_rows_kernel" in name for name, _ in events)}
-        counted = {"cascade": 0, "match_stage": 0, "insert_rows": 0}
+                "insert_rows": sum("insert_rows_kernel" in name for name, _ in events),
+                "track_pre": sum("track_pre_kernel" in name for name, _ in events),
+                "track_post": sum("track_post_kernel" in name for name, _ in events)}
+        counted = dict.fromkeys(seen, 0)
         for name, fns in counters.items():
             if name in counted:
                 counted[name] = sum(runner.replay_launches.get(fn, 0) for fn in fns)
-        want = {"cascade": 0, "match_stage": 31, "insert_rows": 0} if staged else {"cascade": 1, "match_stage": 0, "insert_rows": 0}
+        want = ({"cascade": 0, "match_stage": 31, "insert_rows": 0} if staged
+                else {"cascade": 1, "match_stage": 0, "insert_rows": 0})
+        want.update(track_pre=1, track_post=1)
         if seen != counted or seen != want:
             raise AssertionError(f"one replay on the {'staged' if staged else 'K2'} route: the trace shows {seen} device "
                                  f"kernels, the runner counts {counted}, expected {want}")
-        measured["staged" if staged else "k2"] = {"device_kernels_per_replay": len(events), **seen}
+        if not staged and len(events) > 12:
+            raise AssertionError(f"one replay on the K2 route runs {len(events)} device kernels, want <= 12: "
+                                 f"{[name for name, _ in events]}")
+        measured["staged" if staged else "k2"] = {
+            "device_kernels_per_replay": len(events), **seen, "device_ms": round(sum(ms for _, ms in events), 5),
+            "k9_ms": round(sum(ms for n, ms in events if "track_pre_kernel" in n), 5),
+            "k10_ms": round(sum(ms for n, ms in events if "track_post_kernel" in n), 5),
+            "kernels": sorted({name[:48] for name, _ in events})}
     print(f"frame graph == eager loop, bitwise, on all {len(TrackerState._fields)} state leaves and 4 outputs after each "
           f"of {len(batches)} batches of {b} frames, on both routes ({n_out} track outputs); staged == K2 route on ids, "
           f"mask, boxes; launches over {N_FRAMES} frames: K2 route {k2_l['cascade']} K2, staged route "
-          f"{st_l['match_stage']} K4 match_stage (31 per frame: min(max_age, K) + 1); one replay in the card's trace "
+          f"{st_l['match_stage']} K4 match_stage (31 per frame: min(max_age, K) + 1), {k2_l['track_pre']} K9 and "
+          f"{k2_l['track_post']} K10; one replay in the card's trace "
           f"(torch.profiler): {measured}, equal to the counts the runner adds per replay; warm-up launches of the "
           f"captures so far, on scratch state and in no count above: {dict(graph_mod.warmup_launches)}")
+    print(f"K9 + K10 against the op chain on the card, {N_FRAMES} frames: {json.dumps(against_chain)}")
 
     # tracker A/B on the steady-state batch
     warmed = runs[False, False][0][0]
@@ -1846,7 +1993,7 @@ def check_frame_graph(dev, path, conf, mapping):
               f"{np.median(t['on']):.4f})")
     step_mod.free_frame_runners()
     return {"ab": ab, "launches_k2_route": k2_l, "launches_staged_route": st_l, "replay_in_trace": measured,
-            "batches": batches, "hp": hp, "runs": runs}
+            "against_chain": against_chain, "batches": batches, "hp": hp, "runs": runs}
 
 
 def check_k3(dev):
@@ -2109,10 +2256,12 @@ def run_raw_rgb(dev, tmp, path, zones, conf, mapping, n_frames=N_SWITCHED):
 def check_scan(dev, fg):
     """`class_mode="scan"` on the card over the graph phase's 256 frames
     (the same detections and features): the scan-mode frame graph == the
-    eager scan loop on every state leaf and output, on both routes; scan
-    == batched on the track outputs; K3 launched C times per frame on the
-    K2 route and no K2, K4's fused stage C x 31 times per frame on the
-    staged route; one replay's trace shows C K3 kernels; then
+    eager scan loop on every state leaf and output, on both routes; the
+    graph's K9 + K10 against the op chain (`kernels_vs_chain`); scan ==
+    batched on the track outputs; K3 launched C times per frame on the K2
+    route and no K2, K4's fused stage C x 31 times per frame on the staged
+    route, K9 and K10 once per frame; one replay's trace shows C K3
+    kernels, one K9 and one K10; then
     `tracker_scan` ms/frame, batched against scan, graph on, in turns on
     the steady batch."""
     import torch
@@ -2128,28 +2277,31 @@ def check_scan(dev, fg):
     n_frames = sum(f.shape[0] for _, f in batches)
     stages = min(hp.tracker.max_age, hp.tracker.capacity) + 1  # the staged route's fixed schedule
 
-    def scan(states, det, feats, h, graph, staged):
+    def scan(states, det, feats, h, graph, staged, chain=False):
         old = step_mod.USE_FRAME_GRAPH, tracker.FORCE_PALLAS_CASCADE
         step_mod.USE_FRAME_GRAPH = None if graph else False
         tracker.FORCE_PALLAS_CASCADE = False if staged else old[1]
         try:
-            with torch.no_grad():
+            with torch.no_grad(), op_chain(chain):
                 return step_mod.tracker_scan(states, det, feats, hp=h, src_hw=SRC_HW)
         finally:
             step_mod.USE_FRAME_GRAPH, tracker.FORCE_PALLAS_CASCADE = old
 
     counters = kernel_counters()
-    runs, launches = {}, {}
+    runs, launches, against_chain = {}, {}, {}
     for staged in (False, True):
-        for graph in (False, True):
+        route = "staged" if staged else "K2"
+        for graph in (False, True, "chain"):
             zero_counts(counters)
             states, per_batch = init_states(hp, dev), []
             for det, feats in batches:
-                states, outs = scan(states, det, feats, hp, graph, staged)
+                states, outs = scan(states, det, feats, hp, graph is True, staged, chain=graph == "chain")
                 per_batch.append((TrackerState(*(t.clone() for t in states)), outs))
             torch.cuda.synchronize()
             runs[staged, graph] = per_batch
             launches[staged, graph] = read_counts(counters)
+        against_chain[route] = kernels_vs_chain(runs[staged, True], runs[staged, "chain"],
+                                                f"scan mode, frame graph on the {route} route")
         for i, ((st_e, out_e), (st_g, out_g)) in enumerate(zip(runs[staged, False], runs[staged, True])):
             for name, e, g in zip(st_e._fields + out_e._fields, tuple(st_e) + tuple(out_e), tuple(st_g) + tuple(out_g)):
                 if not torch.equal(e, g):
@@ -2162,17 +2314,24 @@ def check_scan(dev, fg):
                                          f"track {name}")
     k2_l, st_l = launches[False, True], launches[True, True]
     if (k2_l["cascade_k3"] != c * n_frames or k2_l["cascade"] or k2_l["match_stage"] or st_l["cascade"]
-            or st_l["cascade_k3"] or st_l["match_stage"] != c * stages * n_frames or launches[False, False] != k2_l):
+            or st_l["cascade_k3"] or st_l["match_stage"] != c * stages * n_frames or launches[False, False] != k2_l
+            or any(l[n] != n_frames for l in (k2_l, st_l) for n in ("track_pre", "track_post"))):
         raise AssertionError(f"scan-mode launch counts over {n_frames} frames: K2 route {k2_l}, staged {st_l}")
-    events = device_events(step_mod.frame_runner(hp, SRC_HW, dev)._step)
+    runner = step_mod.frame_runner(hp, SRC_HW, dev)
+    events = device_events(runner._step)
     seen = sum("cascade_kernel" in name for name, _ in events)
-    if seen != c:
-        raise AssertionError(f"one scan-mode replay shows {seen} association kernels in the card's trace, want {c}")
+    k9_k10 = [sum(f"track_{n}_kernel" in name for name, _ in events) for n in ("pre", "post")]
+    counted = [runner.replay_launches.get(fn, 0) for fn in counters["track_pre"] + counters["track_post"]]
+    if seen != c or k9_k10 != [1, 1] or counted != k9_k10:
+        raise AssertionError(f"one scan-mode replay shows {seen} association kernels (want {c}) and K9 / K10 "
+                             f"{k9_k10} (the runner counts {counted}, want [1, 1]) in the card's trace")
     n_out = sum(int(o.mask.sum()) for _, o in runs[False, True])
     print(f"scan mode: frame graph == eager loop, bitwise, on every state leaf and output, both routes; scan == "
           f"batched on the track outputs ({n_out} track outputs); launches over {n_frames} frames: K2 route "
           f"{k2_l['cascade_k3']} K3 ({c} per frame), 0 K2; staged route {st_l['match_stage']} K4 match_stage "
-          f"({c} x {stages} per frame); one replay: {len(events)} device kernels, {seen} K3")
+          f"({c} x {stages} per frame), {k2_l['track_pre']} K9 and {k2_l['track_post']} K10; one replay: "
+          f"{len(events)} device kernels, {seen} K3, K9 / K10 {k9_k10}; K9 + K10 against the op chain: "
+          f"{json.dumps(against_chain)}")
 
     warmed = fg["runs"][False, False][0][0]
     det, feats = batches[1]
@@ -2194,7 +2353,7 @@ def check_scan(dev, fg):
           f"{[round(v, 4) for v in t['scan']]} (min {min(t['scan']):.4f})")
     step_mod.free_frame_runners()
     return {"ab": t, "launches_k2_route": k2_l, "launches_staged_route": st_l, "replay_device_kernels": len(events),
-            "replay_k3": seen, "frames": n_frames}
+            "replay_k3": seen, "frames": n_frames, "against_chain": against_chain}
 
 
 def check_k2_cameras(dev):
@@ -2918,9 +3077,10 @@ def run_serving(dev, tmp):
     """(d) `serving.cli export` of the production config (bf16, B=128, 720p
     I420, yolov5s, weights bundled; min_conf and the class map from
     `_serving_config`), then
-    `verify` in a fresh process: bit_exact, K1, K2 and K8 loaded from the
-    artifact's own kernels/ (not build/kernels/) and launched by its
-    step (K8 20 times per K1 launch: a ReID forward per chunk), live and artifact ms per batch; `smoke` in a fresh process
+    `verify` in a fresh process: bit_exact, K1, K2, K8, K9 and K10 loaded
+    from the artifact's own kernels/ (not build/kernels/) and launched by
+    its step (K8 20 times per K1 launch: a ReID forward per chunk; K2, K9
+    and K10 once per frame), live and artifact ms per batch; `smoke` in a fresh process
     (frames/s); then a detect-only artifact and its `smoke`."""
     from vehicle_counting_tpu_torch import _build
     from vehicle_counting_tpu_torch.serving import cli
@@ -2932,19 +3092,21 @@ def run_serving(dev, tmp):
     export_s = time.perf_counter() - t0
     with open(os.path.join(art, "manifest.json")) as f:
         manifest = json.load(f)
-    if sorted(manifest["kernels"]) != ["cascade", "crops", "reid_epilogue"]:
+    if sorted(manifest["kernels"]) != ["cascade", "crops", "reid_epilogue", "track_frame"]:
         raise AssertionError(f"serving: the artifact ships kernels {sorted(manifest['kernels'])}, want cascade, crops, "
-                             f"reid_epilogue")
+                             f"reid_epilogue, track_frame")
     verify = _serving_cli("verify", "--artifact", art, "--batches", str(SERVE_BATCHES))
     kdir = os.path.realpath(os.path.join(art, "kernels"))
     build_dir = os.path.dirname(_build.library_path("crops"))
     frames = 2 * SERVE_BATCHES * verify["batch"]  # two passes of the chain
     if not verify["bit_exact"]:
         raise AssertionError(f"serving verify: {verify['mismatched_arrays']} arrays differ from the live step")
-    for name in ("crops", "cascade", "reid_epilogue"):
+    for name in ("crops", "cascade", "reid_epilogue", "track_frame"):
         if os.path.realpath(verify["kernels_from"][name]) != kdir or verify["kernels_from"][name] == build_dir:
             raise AssertionError(f"serving verify: {name} loaded from {verify['kernels_from'][name]}, not {kdir}")
-    if verify["launches"]["K1"] <= 0 or verify["launches"]["K2"] != frames or verify["launches"]["K8"] != 20 * verify["launches"]["K1"]:
+    if (verify["launches"]["K1"] <= 0 or verify["launches"]["K2"] != frames
+            or verify["launches"]["K8"] != 20 * verify["launches"]["K1"]
+            or verify["launches"]["K9"] != frames or verify["launches"]["K10"] != frames):
         raise AssertionError(f"serving verify: the artifact's step launched {verify['launches']} (K2 {frames} wanted)")
     smoke = _serving_cli("smoke", "--artifact", art, "--batches", str(SERVE_BATCHES))
     cli.main(["export", "--out", art_det, "--config", cfg, "--mapping", mapping, "--device", str(dev), "--detect_only"])
@@ -4133,6 +4295,9 @@ def main() -> int:
                 raise AssertionError(f"the main path never launched the {name} kernel")
         if launches["cascade"] != N_FRAMES:
             raise AssertionError(f"the main path replays one K2 launch per frame: {launches['cascade']} for {N_FRAMES} frames")
+        if launches["track_pre"] != N_FRAMES or launches["track_post"] != N_FRAMES:
+            raise AssertionError(f"the main path replays one K9 and one K10 launch per frame: {launches['track_pre']} "
+                                 f"and {launches['track_post']} for {N_FRAMES} frames")
         if launches["reid_epilogue"] != 20 * launches["crops"]:
             raise AssertionError(f"the main path's embed: {launches['reid_epilogue']} K8 launches for {launches['crops']} "
                                  f"chunks (K1 launches), want 20 per chunk's ReID forward")
@@ -4166,6 +4331,8 @@ def main() -> int:
         fg = check_frame_graph(dev, path, conf, mapping)
         phase("scan: class_mode scan, graph == eager, scan == batched, K3 per class", card)
         sc = check_scan(dev, fg)
+        phase("K9 / K10: the tracker's frame step around the association, against the plain versions", card)
+        k9k10 = check_track_frame(dev)
         phase("multicam (a): K2 with the camera axis, C = 4 x 8", card)
         k2cam = check_k2_cameras(dev)
         phase("multicam (d): the tracker's frame step at N_cam x C = 4, 16, 32 classes", card)
@@ -4256,6 +4423,13 @@ def main() -> int:
         dict(name="reid_epilogue", route="cuda", source="vehicle_counting_tpu_torch/csrc/reid_epilogue.cu",
              replaces=None, launches=launches["reid_epilogue"], launches_switched=launches_sw["reid_epilogue"],
              launches_serving_verify=serve["verify"]["launches"]["K8"], **k8),
+        dict(name="track_pre", route="cuda", source="vehicle_counting_tpu_torch/csrc/track_frame.cu", replaces=None,
+             launches=launches["track_pre"], launches_per_frame=launches["track_pre"] / N_FRAMES,
+             replay_in_trace=fg["replay_in_trace"], against_chain=fg["against_chain"],
+             launches_serving_verify=serve["verify"]["launches"]["K9"], **k9k10["K9"]),
+        dict(name="track_post", route="cuda", source="vehicle_counting_tpu_torch/csrc/track_frame.cu", replaces=None,
+             launches=launches["track_post"], scan_against_chain=sc["against_chain"],
+             launches_serving_verify=serve["verify"]["launches"]["K10"], **k9k10["K10"]),
         dict(name="conv1_s2_silu", route="cuda", source="vehicle_counting_tpu_torch/csrc/conv_s2.cu",
              replaces="vehicle_counting_tpu/ops/pallas/conv_s2.py:181", launches=launches_k6,
              path="layer-1 stand-alone", **k6["bfloat16"], edges=k6["bfloat16_edges"], f32=k6["float32"]),

@@ -174,7 +174,8 @@ def test_pipeline_step_export_matches_live(tiny, tmp_path, class_mode):
     assert tracked > 0
     m = art.manifest
     assert m["functions"]["pipeline_step"]["platforms"] == ["cpu"] and m["functions"]["pipeline_step"]["nr_devices"] == 1
-    assert m["kernels"] == {} and m["kernel_modes"] == {"crops": "plain", "cascade": "plain", "reid_epilogue": "plain"}
+    assert m["kernels"] == {} and m["kernel_modes"] == {"crops": "plain", "cascade": "plain", "reid_epilogue": "plain",
+                                                        "track_frame": "plain"}
     assert art.ycfg == YoloConfig("yolov5n", 80) and art.hp == hp
     assert torch.equal(art.class_lut(), torch.from_numpy(lut))
     assert m["source_sha256"] == art_mod.source_sha256() and m["torch_version"] == torch.__version__
@@ -378,9 +379,11 @@ def test_kernel_routes_and_libraries():
     from vehicle_counting_tpu_torch.tracking import tracker
 
     hp = _hp()
-    assert art_mod._kernel_modes(hp, "cuda") == {"crops": "K1", "cascade": "K2", "reid_epilogue": "K8"}
+    assert art_mod._kernel_modes(hp, "cuda") == {"crops": "K1", "cascade": "K2", "reid_epilogue": "K8",
+                                                 "track_frame": "K9+K10"}
     assert art_mod._kernel_modes(hp._replace(class_mode="scan"), "cuda")["cascade"] == "K3"
-    assert art_mod._kernel_modes(hp, "cpu") == {"crops": "plain", "cascade": "plain", "reid_epilogue": "plain"}
+    assert art_mod._kernel_modes(hp, "cpu") == {"crops": "plain", "cascade": "plain", "reid_epilogue": "plain",
+                                                "track_frame": "plain"}
     big = hp._replace(tracker=TrackerParams(capacity=300))
     assert art_mod._kernel_modes(big, "cuda")["cascade"] == "staged-K4"
     old = reid.FORCE_PALLAS_REID_BLOCK
@@ -390,10 +393,11 @@ def test_kernel_routes_and_libraries():
     finally:
         reid.FORCE_PALLAS_REID_BLOCK = old
     step = art_mod.ExportedStep(entry="m:f", static={}, in_specs=[], platform="cuda", kernel_modes=modes)
-    assert step.kernels == ["cascade", "crops", "reid_block", "reid_epilogue"]
+    assert step.kernels == ["cascade", "crops", "reid_block", "reid_epilogue", "track_frame"]
     assert art_mod.ExportedStep(entry="m:f", static={}, in_specs=[], platform="cuda",
                                 kernel_modes=art_mod._kernel_modes(big, "cuda")).kernels == ["assignment", "crops",
-                                                                                             "reid_epilogue"]
+                                                                                             "reid_epilogue",
+                                                                                             "track_frame"]
     assert tracker.FORCE_PALLAS_CASCADE is None
     _build.check_prebuilt("crops", _build.library_path("crops"))
     with pytest.raises(ValueError, match="not the cascade kernel library"):

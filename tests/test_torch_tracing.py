@@ -310,3 +310,5 @@ def test_one_cpu_step_has_the_spans_of_its_work(monkeypatch):
     assert fused_detect_tail.candidates - candidates == B * ycfg.na * (12 * 16 + 6 * 8 + 3 * 4)
     assert by_name["sync.embed_count"].parent is by_name["embed"]
     assert by_name["track.inputs"].parent is by_name["track"] and by_name["track.scan"].parent is by_name["track"]
+    replays = [s for s in record.spans if s.name == "track.replay"]  # one per frame, inside the scan
+    assert len(replays) == B and all(s.parent is by_name["track.scan"] for s in replays)

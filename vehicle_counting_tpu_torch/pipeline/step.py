@@ -228,14 +228,16 @@ def scan_frame_inputs(states, inp: FrameInputs, *, hp: DeepSortParams, src_hw: T
     rule for the state. `hp.num_classes` must be the inputs' class count:
     the multi-camera step hands in N_cam x C classes. On the card the scan
     replays the frame runner of `slot` (see `frame_runner`). Span:
-    `track.scan`."""
+    `track.scan`, and inside it `track.replay` per frame (the graph's
+    replay, or the eager step)."""
     device = inp.valid.device
     with span("track.scan"):
         if use_frame_graph(device):
             return frame_runner(hp, src_hw, device, slot).run(states, inp)
         outs = []
         for i in range(inp.valid.shape[0]):
-            states, out = frame_update(states, FrameInputs(*(x[i] for x in inp)), hp, src_hw)
+            with span("track.replay"):
+                states, out = frame_update(states, FrameInputs(*(x[i] for x in inp)), hp, src_hw)
             outs.append(out)
         return states, TrackerOutputs(*(torch.stack(leaf) for leaf in zip(*outs)))
 

@@ -240,7 +240,7 @@ def serving_frames_shape(
 
 # kernel route -> the `csrc/` library that holds its kernel
 _ROUTE_LIBS = {"K1": "crops", "K2": "cascade", "K3": "cascade", "staged-K4": "assignment", "K5": "reid_block",
-               "K8": "reid_epilogue"}
+               "K8": "reid_epilogue", "K9+K10": "track_frame"}
 
 
 def _kernel_modes(hp=None, platform: str = "cuda") -> Dict[str, str]:
@@ -248,8 +248,9 @@ def _kernel_modes(hp=None, platform: str = "cuda") -> Dict[str, str]:
     crop gather (K1 on the card, the plain gather on the CPU), the
     association (K2 for all classes, K3 per class in scan mode or for one
     class, or the staged route with K4's fused stage; plain on the CPU),
-    the ReID block (K5, where its switch is on), and the ReID trunk's BN
-    epilogue (K8)."""
+    the ReID block (K5, where its switch is on), the ReID trunk's BN
+    epilogue (K8), and the tracker's frame step around the association
+    (K9 and K10)."""
     from vehicle_counting_tpu_torch.models.reid import _reid_block_on
     from vehicle_counting_tpu_torch.tracking.tracker import _use_cascade_kernel
 
@@ -264,6 +265,7 @@ def _kernel_modes(hp=None, platform: str = "cuda") -> Dict[str, str]:
         if _reid_block_on():
             modes["reid_block"] = "K5" if card else "plain"
         modes["reid_epilogue"] = "K8" if card else "plain"
+        modes["track_frame"] = "K9+K10" if card else "plain"
     return modes
 
 

@@ -167,11 +167,11 @@ def cmd_smoke(args) -> None:
 
 def _counted():
     """The kernel wrappers a pipeline step can launch, by kernel."""
-    from vehicle_counting_tpu_torch.ops import assignment, cascade, crops, reid_block, reid_epilogue
+    from vehicle_counting_tpu_torch.ops import assignment, cascade, crops, reid_block, reid_epilogue, track_frame
 
     return {"K1": crops.gather_crops_batch, "K2": cascade.cascade_match_classparallel,
             "K3": cascade.cascade_match_batched, "K4": assignment.match_stage_batched, "K5": reid_block.reid_block64,
-            "K8": reid_epilogue.reid_epilogue}
+            "K8": reid_epilogue.reid_epilogue, "K9": track_frame.track_frame_pre, "K10": track_frame.track_frame_post}
 
 
 def cmd_verify(args) -> None:

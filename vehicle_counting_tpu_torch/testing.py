@@ -314,3 +314,87 @@ def fake_reid_state_dict(rng: np.random.Generator) -> Dict[str, np.ndarray]:
             conv(f"{base}.downsample.0", p["down"]["w"])
             bn(f"{base}.downsample.1", c)
     return sd
+
+
+def tracker_frame_case(rng: np.random.Generator, c: int, k: int, budget: int = 6, feat: int = 16,
+                       gallery_dtype: str = "float32", crowded: bool = False, absent: bool = True,
+                       max_age: int = 3, device="cpu"):
+    """A random tracker state for C classes of K slots and one frame's
+    inputs, for holding kernels K9 / K10 against the frame step's op chain:
+    (DeepSortParams, TrackerState, FrameInputs, out_hw).
+
+    About half the slots are live (nine in ten with `crowded`), tentative or
+    confirmed, with times since update up to max_age + 1, so a frame both
+    deletes tentative tracks and expires confirmed ones; the gallery counts
+    run past the ring (budget) and the covariances are SPD. Half the
+    detections sit on a live track's predicted box (a pixel of jitter) with
+    a feature near one of its gallery rows, the rest are clutter; a few are
+    invalid. With `crowded` every slot holds a valid detection, so the
+    initiations outrun the free slots (overflow). With `absent` and C > 1
+    the last class had no raw detection. Everything is drawn from `rng`."""
+    import torch
+
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, FrameInputs
+    from vehicle_counting_tpu_torch.tracking.tracker import TrackerParams, TrackerState
+
+    hp = DeepSortParams(tracker=TrackerParams(capacity=k, feat_dim=feat, budget=budget, max_age=max_age, n_init=3,
+                                              feat_dtype=gallery_dtype), num_classes=c)
+    f32, i32 = np.float32, np.int32
+    state = np.where(rng.random((c, k)) < (0.9 if crowded else 0.5), rng.integers(1, 3, (c, k)), 0).astype(i32)
+    live = state > 0
+    hits = np.where(live, rng.integers(1, 6, (c, k)), 0).astype(i32)
+    age = np.where(live, hits + rng.integers(0, 5, (c, k)), 0).astype(i32)
+    tsu = np.where(live, rng.integers(0, max_age + 2, (c, k)), 0).astype(i32)
+    track_id = np.where(live, np.arange(1, c * k + 1).reshape(c, k), 0).astype(i32)
+    next_id = (track_id.max(-1) + 1).astype(i32)
+    mean = np.zeros((c, k, 8), f32)
+    mean[..., 0] = rng.uniform(40, 260, (c, k))
+    mean[..., 1] = rng.uniform(40, 200, (c, k))
+    mean[..., 2] = rng.uniform(0.4, 2.0, (c, k))
+    mean[..., 3] = rng.uniform(12, 50, (c, k))
+    mean[..., 4:6] = rng.normal(0, 1.5, (c, k, 2))
+    mean[..., 6] = rng.normal(0, 0.01, (c, k))
+    mean[..., 7] = rng.normal(0, 0.3, (c, k))
+    std = np.concatenate([np.full((c, k, 2), 2.0), np.full((c, k, 1), 0.05), np.full((c, k, 1), 2.0),
+                          np.full((c, k, 2), 0.8), np.full((c, k, 1), 1e-3), np.full((c, k, 1), 0.8)], -1)
+    std = std * rng.uniform(0.5, 2.0, (c, k, 1))
+    a = rng.normal(0, 0.2, (c, k, 8, 8))
+    cov = (np.einsum("...i,ij->...ij", std ** 2, np.eye(8)) + a @ np.swapaxes(a, -1, -2)).astype(f32)
+    rows = rng.standard_normal((c, k, budget, feat))
+    gallery = (rows / np.linalg.norm(rows, axis=-1, keepdims=True)).astype(f32)
+    gallery_count = np.where(live, rng.integers(0, 2 * budget + 1, (c, k)), 0).astype(i32)
+    pending_count = np.where(live, rng.integers(0, 3, (c, k)), 0).astype(i32)
+    last_conf = rng.uniform(0.2, 0.95, (c, k)).astype(f32)
+    overflow = rng.integers(0, 3, c).astype(i32)
+
+    tlwh = np.zeros((c, k, 4), f32)
+    feats = rng.standard_normal((c, k, feat)).astype(f32)
+    valid = np.zeros((c, k), bool)
+    for ci in range(c):
+        tracks = np.flatnonzero(live[ci])
+        n_det = k if crowded else int(rng.integers(k // 4, k // 2 + 2))
+        for d in range(min(n_det, k)):
+            if d % 2 == 0 and tracks.size:
+                t = tracks[rng.integers(0, tracks.size)]
+                m = mean[ci, t]
+                w, h = m[2] * m[3], m[3]
+                cx, cy = m[0] + m[4], m[1] + m[5]
+                tlwh[ci, d] = [cx - w / 2, cy - h / 2, w, h] + rng.normal(0, 1.0, 4)
+                feats[ci, d] = gallery[ci, t, int(rng.integers(0, budget))] * 4 + rng.normal(0, 0.05, feat)
+            else:
+                tlwh[ci, d] = [*rng.uniform(0, 280, 2), *rng.uniform(10, 60, 2)]
+            valid[ci, d] = crowded or rng.random() < 0.9
+    scores = rng.uniform(0.3, 0.95, (c, k)).astype(f32)
+    order = np.argsort(rng.random((c, k)), -1).astype(i32)
+    present = np.ones(c, bool)
+    if absent and c > 1:
+        present[-1] = False
+
+    def t(x, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device=device, dtype=dtype)
+
+    st = TrackerState(t(mean), t(cov), t(track_id), t(state), t(hits), t(age), t(tsu),
+                      t(gallery, getattr(torch, gallery_dtype)), t(gallery_count), t(pending_count), t(last_conf),
+                      t(next_id), t(overflow))
+    inp = FrameInputs(t(tlwh), t(scores), t(valid), t(feats), t(present), t(order))
+    return hp, st, inp, (240, 300)

@@ -12,12 +12,12 @@ over any leading frame axis) and `frame_update` (the recurrent tracker
 step); `deepsort_frame_core` is the two for one frame, `deepsort_frame`
 the same with the crop + embed of one frame (`embed_detections`).
 
-Two class modes, with equal results: "batched" runs the association and
-lifecycle once for all classes (one K2 launch per frame); "scan" runs them
-class by class on [1, ...] slices (one K3 launch per class per frame on
-the K2 route), as the JAX package's scan over classes does. Both keep the
-Kalman predict, the appearance cost and the gallery commit batched over
-the classes.
+Two class modes, with equal results: "batched" runs the association once
+for all classes (one K2 launch per frame); "scan" runs it class by class
+on [1, ...] slices (one K3 launch per class per frame on the K2 route),
+as the JAX package's scan over classes does. Both keep the Kalman
+predict, the appearance cost (kernel K9), the lifecycle and the gallery
+commit (kernel K10) batched over the classes.
 """
 
 from __future__ import annotations
@@ -30,16 +30,15 @@ from vehicle_counting_tpu_torch.models.reid import EMBED_DIM, reid_embed
 from vehicle_counting_tpu_torch.ops.boxes import xyxy_to_tlwh
 from vehicle_counting_tpu_torch.ops.crops import gather_crops_batch, planar_copy
 from vehicle_counting_tpu_torch.ops.nms import sort_nms_mask
+from vehicle_counting_tpu_torch.ops.track_frame import track_frame_post, track_frame_pre
 from vehicle_counting_tpu_torch.tracking.tracker import (
-    SMALL_FIELDS,
     TrackerOutputs,
     TrackerParams,
     TrackerState,
+    _associate,
+    gallery_sims,
     init_state,
     l2_normalize,
-    tracker_feature_post,
-    tracker_precompute,
-    tracker_step_core,
 )
 from vehicle_counting_tpu_torch.utils.profiling import span, spanned
 
@@ -204,42 +203,28 @@ def frame_inputs(feats, boxes, scores, classes, valid, hp: DeepSortParams) -> Fr
     return FrameInputs(ct, cs, cv, cf, present, order)
 
 
-def _step_by_class(states: TrackerState, pre, inp: FrameInputs, hp: DeepSortParams, width: int, height: int):
-    """`tracker_step_core` class by class on [1, ...] slices (class_mode
-    "scan"), the results stacked back to [C]; the gallery leaves pass
-    through for `tracker_feature_post`."""
-    parts = []
-    for c in range(hp.num_classes):
-        one = slice(c, c + 1)
-        parts.append(tracker_step_core(
-            TrackerState(*(x[one] for x in states)), tuple(p[one] for p in pre), inp.tlwh[one], inp.scores[one],
-            inp.valid[one], hp.tracker, width, height, inp.present[one], inp.order[one],
-        ))
-    news, outs, flags = zip(*parts)
-    new_st = states._replace(**{f: torch.cat([getattr(n, f) for n in news]) for f in SMALL_FIELDS})
-    return (new_st, type(outs[0])(*(torch.cat(leaf) for leaf in zip(*outs))),
-            type(flags[0])(*(torch.cat(leaf) for leaf in zip(*flags))))
-
-
-def frame_update(states: TrackerState, inp: FrameInputs, hp: DeepSortParams,
-                 out_hw: Tuple[int, int]) -> Tuple[TrackerState, TrackerOutputs]:
-    """The recurrent part: one frame of every class's tracker. The
-    association and lifecycle run for all classes at once, or class by
-    class in class_mode "scan"."""
+def frame_update(states: TrackerState, inp: FrameInputs, hp: DeepSortParams, out_hw: Tuple[int, int],
+                 out_state: TrackerState = None, out: TrackerOutputs = None) -> Tuple[TrackerState, TrackerOutputs]:
+    """The recurrent part: one frame of every class's tracker, through
+    kernels K9 and K10 (`ops/track_frame.py`) around the association: the
+    features normalised once, one GEMM of the gallery against them, K9, the
+    association (K2 for all classes, K3 per class in class_mode "scan", or
+    the staged route), K10. CPU tensors run the kernels' plain versions,
+    PyTorch's op chain. The new state goes into `out_state` (None: new
+    tensors; the frame runner passes `states` itself) and the outputs into
+    `out`; the gallery is updated in place."""
     h, w = out_hw
-    pre = tracker_precompute(states, inp.tlwh, inp.feats, inp.valid, hp.tracker)
+    tp = hp.tracker
+    f_n = l2_normalize(inp.feats)
+    pre = track_frame_pre(states, inp.tlwh, inp.valid, gallery_sims(states.gallery, f_n), tp)
+    args = (pre.gated, pre.iou_cost, pre.lvl_of, pre.tentative, states.track_id, pre.iou_order, inp.valid, inp.order)
     if hp.class_mode == "scan":
-        new_st, outputs, flags = _step_by_class(states, pre, inp, hp, w, h)
+        parts = [_associate(*(a[c : c + 1] for a in args), tp) for c in range(hp.num_classes)]
+        det_free, track_col, det_key = (torch.cat(leaf) for leaf in zip(*parts))
     else:
-        new_st, outputs, flags = tracker_step_core(
-            states, pre, inp.tlwh, inp.scores, inp.valid, hp.tracker, w, h, inp.present, inp.order,
-        )
-    gallery, gallery_count, pending_count = tracker_feature_post(
-        states.gallery, states.gallery_count, states.pending_count, flags,
-        l2_normalize(inp.feats), hp.tracker,
-    )
-    return new_st._replace(gallery=gallery, gallery_count=gallery_count,
-                           pending_count=pending_count), outputs
+        det_free, track_col, det_key = _associate(*args, tp)
+    return track_frame_post(states, pre, inp.tlwh, inp.scores, inp.valid, inp.present, f_n, det_free, track_col,
+                            det_key, tp, w, h, out_state, out)
 
 
 def deepsort_frame_core(states: TrackerState, feats, boxes, scores, classes, valid,

@@ -2,23 +2,24 @@
 
 Counterpart of the `jax.jit` around the JAX package's frame scan
 (`vehicle_counting_tpu/pipeline/step.py::tracker_scan`, a `lax.scan` inside
-one compiled program): `tracking/deepsort.py::frame_update` is some five
-hundred small kernels per frame, and launched one by one the host, not the
-card, sets the frame rate. A `FrameRunner` owns one frame's `FrameInputs`,
-every `TrackerState` leaf and one `TrackerOutputs` slot as static tensors,
-captures
+one compiled program): the frame step is a dozen launches
+(`tracking/deepsort.py::frame_update`: the features' normalisation, the
+gallery GEMM, kernel K9, the association, kernel K10), and launched one by
+one the host, not the card, would set the frame rate. A `FrameRunner` owns
+one frame's `FrameInputs`, every `TrackerState` leaf and one
+`TrackerOutputs` slot as static tensors, captures
 
-    frame_update(static state, static inputs) -> small state leaves copied
-    back into the static leaves (the gallery is updated in place) ->
-    outputs copied into the static slot
+    frame_update(static state, static inputs) -> K10 writes the new
+    state over the static leaves and the outputs into the static slot
 
 once, and per frame copies the frame's inputs in, replays the graph and
 copies the outputs into row i of the batch's output tensors. Everything
 stays on the current stream; nothing is read back from the device.
 
 On the CPU there is no graph: the runner runs the same body eagerly over
-the same static buffers, which is how the CPU tests hold the buffer logic
-against the plain loop.
+the same static buffers (K9's and K10's plain versions, K10's writing
+its results over the buffers), which is how the CPU tests hold the buffer
+logic against the plain loop.
 
 A state the runner does not own is copied in first (a 15.7 MB bf16 gallery
 at C=4, K=64, budget 60); the state it returns is its own static state, so
@@ -34,12 +35,15 @@ import torch
 
 from vehicle_counting_tpu_torch.ops.assignment import match_stage_batched
 from vehicle_counting_tpu_torch.ops.cascade import cascade_match_batched, cascade_match_classparallel
+from vehicle_counting_tpu_torch.ops.track_frame import track_frame_post, track_frame_pre
 from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, FrameInputs, frame_update, init_states
 from vehicle_counting_tpu_torch.tracking.tracker import TrackerOutputs, TrackerState
+from vehicle_counting_tpu_torch.utils.profiling import span
 
 # the kernel wrappers a tracker step can launch: a replay launches what the
 # capture recorded, so the runner adds the captured step's counts per replay
-_COUNTED = (cascade_match_classparallel, cascade_match_batched, match_stage_batched)
+_COUNTED = (cascade_match_classparallel, cascade_match_batched, match_stage_batched, track_frame_pre,
+            track_frame_post)
 _WARMUP_STEPS = 2
 # wrapper name -> launches made by captures' warm-up steps, on scratch
 # state: real device launches that advance no tracker, kept out of the
@@ -102,15 +106,9 @@ class FrameRunner:
             self._capture()
 
     def _body(self) -> None:
-        """One frame on the static buffers. The gallery leaf is updated in
-        place by `frame_update`; every other leaf comes back as a new
-        tensor and is copied over the static one, after its last reader."""
-        new_st, out = frame_update(self.state, self.inp, self.hp, self.out_hw)
-        for dst, src in zip(self.state, new_st):
-            if dst is not src:
-                dst.copy_(src)
-        for dst, src in zip(self.out, out):
-            dst.copy_(src)
+        """One frame on the static buffers: K10 writes the new state and
+        the outputs over them."""
+        frame_update(self.state, self.inp, self.hp, self.out_hw, out_state=self.state, out=self.out)
 
     def _capture(self) -> None:
         """Warm up on a side stream, then capture one step. Both run on the
@@ -144,10 +142,13 @@ class FrameRunner:
             w.launches = b
 
     def _step(self) -> None:
-        if self.graph is None:
-            self._body()
-            return
-        self.graph.replay()
+        """One frame: the graph's replay, or the body on the CPU. Span:
+        `track.replay`."""
+        with span("track.replay"):
+            if self.graph is None:
+                self._body()
+                return
+            self.graph.replay()
         for w, n in self.replay_launches.items():
             w.launches += n
 

@@ -19,8 +19,15 @@ linear_assignment.py, iou_matching.py):
   * a class with no raw detection this frame does not advance.
 
 `tracker_step` is the single-class step on an unbatched [K] state (the
-JAX package's `tracker_step`); it runs the [C]-batched core with C = 1,
-so its association takes the per-class entry of K2's kernel (K3).
+JAX package's `tracker_step`); it runs the [C]-batched frame step
+(`tracking/deepsort.py::frame_update`) with C = 1, so its association
+takes the per-class entry of K2's kernel (K3).
+
+The frame step runs as kernels K9 and K10 around the association
+(`ops/track_frame.py`). Their plain versions, what CPU tensors run, are
+PyTorch's op chain built from this module's pieces (`gallery_sims`,
+`predict_active`, `gate_cost`, `association_inputs`, `lifecycle`,
+`present_gate`, `tracker_feature_post`).
 
 On the card the per-frame step is sync-free on both routes:
 data-dependent choices are masked selects and scatters, never host
@@ -82,7 +89,7 @@ class TrackerState(NamedTuple):
     overflow: torch.Tensor       # [C] i32 count of dropped initiations
 
 
-# the leaves `_tracker_core` moves on; the gallery and its two counts are
+# the leaves `lifecycle` moves on; the gallery and its two counts are
 # `tracker_feature_post`'s
 SMALL_FIELDS = ("mean", "cov", "track_id", "state", "hits", "age", "tsu", "last_conf", "next_id", "overflow")
 
@@ -136,18 +143,22 @@ def l2_normalize(feat: torch.Tensor) -> torch.Tensor:
     return feat / torch.clamp(torch.linalg.vector_norm(feat, dim=-1, keepdim=True), min=1e-12)
 
 
-def _appearance_cost(st: TrackerState, feat: torch.Tensor, hp: TrackerParams) -> torch.Tensor:
-    """[C, K, D] min cosine distance of each detection to each gallery.
+def gallery_sims(gallery: torch.Tensor, f_n: torch.Tensor) -> torch.Tensor:
+    """[C, K, B, D] dot products of every gallery row with every detection's
+    L2-normalised feature f_n [C, D, F]: the features rounded to the
+    gallery's storage dtype and the products summed in f32 (a bf16 gallery
+    gives bf16 x bf16 -> f32, as on the TPU). One GEMM."""
+    c, k, b, f = gallery.shape
+    f_n = f_n.to(gallery.dtype).float()
+    sims = torch.matmul(gallery.float().reshape(c, k * b, f), f_n.transpose(-1, -2))
+    return sims.reshape(c, k, b, -1)
 
-    Features are rounded to the gallery's storage dtype and the products
-    summed in f32 (a bf16 gallery gives bf16 x bf16 -> f32, as on the TPU).
-    """
-    c, k, b, f = st.gallery.shape
-    f_n = l2_normalize(feat).to(st.gallery.dtype).float()
-    sims = torch.matmul(st.gallery.float().reshape(c, k * b, f), f_n.transpose(-1, -2))
-    sims = sims.reshape(c, k, b, -1)
-    slot = torch.arange(b, device=feat.device)
-    slot_valid = slot < torch.clamp(st.gallery_count, max=b)[..., None]  # [C, K, B]
+
+def appearance_from_sims(sims: torch.Tensor, gallery_count: torch.Tensor) -> torch.Tensor:
+    """[C, K, D] min cosine distance over each slot's revealed ring rows."""
+    b = sims.shape[2]
+    slot = torch.arange(b, device=sims.device)
+    slot_valid = slot < torch.clamp(gallery_count, max=b)[..., None]  # [C, K, B]
     dist = torch.where(slot_valid[..., None], 1.0 - sims, torch.full_like(sims, INFTY_COST))
     return dist.amin(dim=2)
 
@@ -252,18 +263,30 @@ def _associate(gated, iou_cost, lvl_of, tentative, track_id, iou_order,
     return out.det_free, out.track_col, out.det_key
 
 
-def tracker_precompute(st: TrackerState, tlwh, feat, det_valid, hp: TrackerParams):
-    """Association-independent math: predict + gated appearance cost.
-    Returns (pred_mean, pred_cov, gated [C, K, D])."""
+def predict_active(st: TrackerState):
+    """The Kalman predict of the active slots -> (mean, cov)."""
     active = st.state > EMPTY
     pm, pc = kalman.predict(st.mean, st.cov)
     mean = torch.where(active[..., None], pm, st.mean)
     cov = torch.where(active[..., None, None], pc, st.cov)
-    app = _appearance_cost(st, feat, hp)
+    return mean, cov
+
+
+def gate_cost(mean, cov, app, tlwh, det_valid):
+    """The appearance cost gated by the Mahalanobis distance (INFTY past
+    the chi-square bound) and by det_valid (BIG at invalid detections)."""
     maha = kalman.gating_distance(mean, cov, tlwh_to_xyah(tlwh))
     gated = torch.where(maha > kalman.CHI2INV95_4DOF, torch.full_like(app, INFTY_COST), app)
-    gated = torch.where(det_valid[..., None, :], gated, torch.full_like(gated, BIG))
-    return mean, cov, gated
+    return torch.where(det_valid[..., None, :], gated, torch.full_like(gated, BIG))
+
+
+def tracker_precompute(st: TrackerState, tlwh, feat, det_valid, hp: TrackerParams):
+    """Association-independent math: predict + gated appearance cost.
+    Returns (pred_mean, pred_cov, gated [C, K, D]); kernel K9 computes the
+    same on the card."""
+    mean, cov = predict_active(st)
+    app = appearance_from_sims(gallery_sims(st.gallery, l2_normalize(feat)), st.gallery_count)
+    return mean, cov, gate_cost(mean, cov, app, tlwh, det_valid)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -273,20 +296,13 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, ix)
 
 
-def _tracker_core(st: TrackerState, pre, tlwh, conf, det_valid, hp: TrackerParams,
-                  width: int, height: int, det_order):
-    """Association + lifecycle for [C] classes on the small state.
-    Returns (new_state, outputs, flags); gallery leaves pass through."""
-    k = hp.capacity
-    c = st.state.shape[0]
-    dev = st.state.device
-    i32 = torch.int32
-    active = st.state > EMPTY
-    mean, cov, gated = pre
-    age = st.age + active.to(i32)
-    tsu = st.tsu + active.to(i32)
-    det_xyah = tlwh_to_xyah(tlwh)
-
+def association_inputs(st: TrackerState, mean, tlwh, hp: TrackerParams):
+    """The association's operands besides the gated cost, from the
+    predicted mean: (tentative [C, K] bool, cascade level lvl_of [C, K] i32
+    (IMAX: not in the cascade), the IoU cost [C, K, D] with the rows of
+    tracks missed more than once at INFTY, the IoU stage's row order
+    [C, K] i32)."""
+    tsu = st.tsu + (st.state > EMPTY).to(torch.int32)
     confirmed = st.state == CONFIRMED
     tentative = st.state == TENTATIVE
     # level L matches tracks with tsu == 1 + L (cascade depth = max_age)
@@ -294,11 +310,24 @@ def _tracker_core(st: TrackerState, pre, tlwh, conf, det_valid, hp: TrackerParam
     iou_cost = 1.0 - tlwh_iou_matrix(kalman.to_tlwh(mean), tlwh)
     iou_cost = torch.where(tsu[..., None] > 1, torch.full_like(iou_cost, INFTY_COST), iou_cost)
     # IoU-stage row order: unconfirmed tracks first, each group in id order
-    iou_order = st.track_id + torch.where(confirmed, 1 << 20, 0).to(i32)
+    iou_order = st.track_id + torch.where(confirmed, 1 << 20, 0).to(torch.int32)
+    return tentative, lvl_of, iou_cost, iou_order
 
-    det_free, track_col, det_key = _associate(
-        gated, iou_cost, lvl_of, tentative, st.track_id, iou_order, det_valid, det_order, hp,
-    )
+
+def lifecycle(st: TrackerState, mean, cov, tlwh, conf, det_valid, det_free, track_col, det_key,
+              hp: TrackerParams, width: int, height: int):
+    """Everything after the association, from its (det_free, track_col,
+    det_key) for [C] classes on the small state: Kalman update of matched
+    slots, confirmation, deletion, initiation, outputs. Returns (new_state,
+    outputs, flags); gallery leaves pass through."""
+    k = hp.capacity
+    c = st.state.shape[0]
+    dev = st.state.device
+    i32 = torch.int32
+    active = st.state > EMPTY
+    age = st.age + active.to(i32)
+    tsu = st.tsu + active.to(i32)
+    det_xyah = tlwh_to_xyah(tlwh)
 
     # ---- matched: KF update + lifecycle ----------------------------------
     matched = track_col >= 0
@@ -406,12 +435,10 @@ def tracker_feature_post(gallery, gallery_count, pending_count, flags: TrackerFl
     return gallery, gallery_count.to(torch.int32), pending_count.to(torch.int32)
 
 
-def tracker_step_core(st: TrackerState, pre, tlwh, conf, det_valid, hp: TrackerParams,
-                      width: int, height: int, present, det_order):
-    """`_tracker_core` gated by `present` [C]: a class with no raw detection
-    this frame keeps its state, outputs nothing and flags nothing."""
-    new_st, outputs, flags = _tracker_core(st, pre, tlwh, conf, det_valid, hp, width, height, det_order)
-    k = hp.capacity
+def present_gate(st: TrackerState, new_st: TrackerState, outputs: TrackerOutputs, flags: TrackerFlags, present):
+    """A class with no raw detection this frame (`present` [C] False)
+    keeps its state, outputs nothing and flags nothing."""
+    k = flags.src.shape[-1]
 
     def keep(new, old):
         p = present.reshape(present.shape + (1,) * (new.dim() - 1))
@@ -429,25 +456,43 @@ def tracker_step_core(st: TrackerState, pre, tlwh, conf, det_valid, hp: TrackerP
     return new_st, outputs, flags
 
 
+def tracker_step_core(st: TrackerState, pre, tlwh, conf, det_valid, hp: TrackerParams,
+                      width: int, height: int, present, det_order):
+    """Association + lifecycle for [C] classes from `tracker_precompute`'s
+    `pre`, gated by `present` [C]: a class with no raw detection this frame
+    keeps its state, outputs nothing and flags nothing. Returns (new_state,
+    outputs, flags); the gallery leaves pass through."""
+    mean, cov, gated = pre
+    tentative, lvl_of, iou_cost, iou_order = association_inputs(st, mean, tlwh, hp)
+    assoc = _associate(gated, iou_cost, lvl_of, tentative, st.track_id, iou_order, det_valid, det_order, hp)
+    new_st, outputs, flags = lifecycle(st, mean, cov, tlwh, conf, det_valid, *assoc, hp, width, height)
+    return present_gate(st, new_st, outputs, flags, present)
+
+
 def _tracker_step_impl(st: TrackerState, tlwh, conf, feat, det_valid, hp: TrackerParams, width: int, height: int,
                        det_order, pre=None, present=None):
-    """Self-contained single-class step on an unbatched [K] state:
-    precompute + core + feature post, through the [C]-batched functions
-    with C = 1. `present` (a bool tensor, default True) gates the step as
-    `tracker_step_core` does. The gallery is updated in place."""
+    """Self-contained single-class step on an unbatched [K] state, through
+    the [C]-batched frame step with C = 1: kernels K9 and K10 on the card,
+    their plain versions on the CPU. A given `pre` (pred_mean, pred_cov,
+    gated) stands for the predict and the gated cost: the association's
+    other operands are computed from it, then K10 runs. `present` (a bool
+    tensor, default True) gates the step. The gallery is updated in
+    place."""
+    from vehicle_counting_tpu_torch.ops.track_frame import PreOut, track_frame_post
+    from vehicle_counting_tpu_torch.tracking.deepsort import DeepSortParams, FrameInputs, frame_update
+
     one = TrackerState(*(x[None] for x in st))
-    if pre is None:
-        pre = tracker_precompute(one, tlwh[None], feat[None], det_valid[None], hp)
-    else:
-        pre = tuple(p[None] for p in pre)
     present = torch.as_tensor(True if present is None else present, dtype=torch.bool, device=det_valid.device)
-    new_st, outputs, flags = tracker_step_core(
-        one, pre, tlwh[None], conf[None], det_valid[None], hp, width, height, present.reshape(1), det_order[None],
-    )
-    gallery, gallery_count, pending_count = tracker_feature_post(
-        one.gallery, one.gallery_count, one.pending_count, flags, l2_normalize(feat)[None], hp,
-    )
-    new_st = new_st._replace(gallery=gallery, gallery_count=gallery_count, pending_count=pending_count)
+    inp = FrameInputs(tlwh[None], conf[None], det_valid[None], feat[None], present.reshape(1), det_order[None])
+    if pre is None:
+        new_st, outputs = frame_update(one, inp, DeepSortParams(tracker=hp, num_classes=1), (height, width))
+    else:
+        mean, cov, gated = (p[None] for p in pre)
+        tentative, lvl_of, iou_cost, iou_order = association_inputs(one, mean, inp.tlwh, hp)
+        assoc = _associate(gated, iou_cost, lvl_of, tentative, one.track_id, iou_order, inp.valid, inp.order, hp)
+        new_st, outputs = track_frame_post(one, PreOut(mean, cov, gated, iou_cost, lvl_of, tentative, iou_order),
+                                           inp.tlwh, inp.scores, inp.valid, inp.present, l2_normalize(inp.feats),
+                                           *assoc, hp, width, height)
     return TrackerState(*(x[0] for x in new_st)), TrackerOutputs(*(o[0] for o in outputs))
 
 
@@ -462,7 +507,8 @@ def tracker_step(st: TrackerState, tlwh, conf, feat, det_valid, hp: TrackerParam
     A class not present keeps its state and outputs nothing (a select, not
     a host branch). `det_order` [K] i32: each detection's rank in the
     reference's detection list (default: slot order). `pre`: an unbatched
-    `tracker_precompute` result, computed here when absent.
+    `tracker_precompute` result (K9's first three outputs), computed here
+    when absent.
     Returns (new state, TrackerOutputs [K, ...]); the gallery is updated in
     place."""
     if present is None:
